@@ -6,26 +6,38 @@
 Phases (any failure raises, so the exit code is not 0):
   1. environment: python/torch/CUDA versions and the card's name and power
      limit (nvidia-smi);
-  2. build: the CUDA kernels from worldtpu_torch/csrc/*.cu for sm_90a;
+  2. build: the CUDA kernels from worldtpu_torch/csrc/*.cu for sm_90a (one
+     nvcc per source, all started together);
   3. main path: batch_wav_to_wav on B=8 synthetic 22.05 kHz utterances
      (bench.synth_utterance_diverse) padded to a multiple of 4096 samples,
      f0_floor 40, pitch x1.2, duration x1.25 (frame period 6.25 ms at
      synthesis), static pulse capacity; checks shape, finiteness, level,
-     pulse overflow, and that the zc, refine and OLA kernels each ran;
-     reports wall time per batch and the realtime factor, the host
+     pulse overflow, and that the zc, refine, OLA and extend kernels each
+     ran; reports wall time per batch and the realtime factor, the host
      synchronisations of the main path and of its contour chain (counted
      with CUDA sync debug mode), and, from one torch.profiler run of the
      main path, each stage's host and device time (the ``wt.*`` ranges)
      and the device's busy share of that run's wall;
   4. per kernel, at the main path's shapes: kernel against its plain
      PyTorch version on the card (stated tolerances), median times of both
-     from CUDA events;
+     from CUDA events; the zc phase-1 entry (zc_kernel.zc_events, the zc
+     events kernel's path, driven with the counts set to 0) and the zc
+     split (events ms beside full zc ms); the contour chain with the extend
+     kernel against the same chain with the plain walk, in turns;
   5. the port on the card against the port on the CPU (plain versions) on
-     the tests/fixtures/t22.wav batch: F0 and short-time RMS envelope.
+     the tests/fixtures/t22.wav batch: F0 and short-time RMS envelope;
+  6. the user entry points on the card: HarvestKernel.compute_batch with
+     the capacity check on the B=8 batch (F0 equal to the main path's),
+     HarvestKernel.compute on the batch's audio as one long utterance (the
+     device contour chain past 8192 frames, with its peak device memory),
+     api.World.copy_synthesis on t22, and the CLI (analyze, synthesize,
+     copy-syn --fused) with --device cuda on t22 into a temporary directory.
 
-The line before the last is a JSON object {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}.  Without a CUDA device, or outside
-the repository, the script exits non-zero and prints no result.
+The line before the last is a JSON object {"kernels": [...]}: for each
+kernel its launches in the main path's run (zc_events: in its own path's
+run), its largest difference from its plain version and both times.  The
+last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
+outside the repository, the script exits non-zero and prints no result.
 """
 
 import collections
@@ -34,6 +46,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 import wave
@@ -133,6 +146,17 @@ def stage_profile(torch, fn):
     return wall * 1000, acts, stages
 
 
+def wall_ms(torch, fn, reps):
+    """Median host wall of fn() ending in a synchronize, in ms."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+    return statistics.median(times)
+
+
 def read_wav(path):
     with wave.open(str(path)) as w:
         if w.getsampwidth() != 2 or w.getnchannels() != 1:
@@ -162,7 +186,8 @@ def main():
                                                     cheaptrick_frames)
     from worldtpu_torch.analysis import contour_device as CDV
     from worldtpu_torch.analysis.d4c import d4c_frames
-    from worldtpu_torch.ops import ola_kernel, refine_kernel, zc_kernel
+    from worldtpu_torch.ops import (extend_kernel, ola_kernel, refine_kernel,
+                                    zc_kernel)
     from worldtpu_torch.parallel.batch import batch_wav_to_wav, pad_batch
     from worldtpu_torch.synthesis import synthesis as S
 
@@ -238,7 +263,7 @@ def main():
         raise AssertionError(f"output rms {rms}")
     if bool(ovf.any()):
         raise AssertionError(f"pulse capacity overflow: {ovf.tolist()}")
-    for k in ("wt_zc", "wt_refine_sums", "wt_ola"):
+    for k in ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend"):
         if counts.get(k, 0) < 1:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  f"main path")
@@ -247,9 +272,12 @@ def main():
         _, n_path = count_syncs(torch, lambda: batch_wav_to_wav(x, noise,
                                                                 **kw))
         mean = torch.zeros(BATCH, device=dev)
-        cand, score = H.harvest_device_stages(x, mean, geo=geo)
-        _, n_contour = count_syncs(torch, lambda: CDV.fix_and_smooth(
-            cand, score, n_grid, geo.frame_period))
+        hcand, hscore = H.harvest_device_stages(x, mean, geo=geo)
+
+        def chain():
+            return CDV.fix_and_smooth(hcand, hscore, n_grid, geo.frame_period)
+
+        _, n_contour = count_syncs(torch, chain)
     log(f"host syncs per batch (CUDA sync debug mode): main path {n_path}, "
         f"of which contour chain {n_contour}")
     p_wall, acts, stages = stage_profile(
@@ -294,8 +322,8 @@ def main():
         z_plain = median_ms(torch, lambda: zc_kernel.band_candidates_plain(
             filt, bounds, **zargs), 3)
         results.append(("zc", "worldtpu_torch/csrc/zc.cu",
-                        "worldtpu/ops/zc_kernel.py:112", "wt_zc", zerr,
-                        z_ms, z_plain))
+                        "worldtpu/ops/zc_kernel.py:112", counts["wt_zc"],
+                        zerr, z_ms, z_plain))
 
         cand, _, _ = H.candidates_stage(y_dec, mean, geo)
         tpos = torch.arange(geo.f0_length, dtype=torch.float32,
@@ -326,8 +354,8 @@ def main():
         r_plain = median_ms(torch, lambda: refine_kernel.spectral_sums_plain(
             *rk_args, **rkw), 3)
         results.append(("refine", "worldtpu_torch/csrc/refine.cu",
-                        "worldtpu/ops/refine_kernel.py:49", "wt_refine_sums",
-                        rerr, r_ms, r_plain))
+                        "worldtpu/ops/refine_kernel.py:49",
+                        counts["wt_refine_sums"], rerr, r_ms, r_plain))
 
         tpos5 = torch.arange(n_grid, dtype=torch.float32, device=dev) \
             * (geo.frame_period / 1000.0)
@@ -351,8 +379,116 @@ def main():
         o_plain = median_ms(torch, lambda: ola_kernel.overlap_add_plain(
             resp, starts, out_len), 5)
         results.append(("ola", "worldtpu_torch/csrc/ola.cu",
-                        "worldtpu/ops/ola_kernel.py:51", "wt_ola", oerr,
-                        o_ms, o_plain))
+                        "worldtpu/ops/ola_kernel.py:51", counts["wt_ola"],
+                        oerr, o_ms, o_plain))
+
+        # the extend walk on the batch's own walks: the arguments the
+        # contour chain passes (one call per chain)
+        seen = []
+        real_walk = extend_kernel.extend_walk
+
+        def spy(*a, **k):
+            seen.append((a, k))
+            return real_walk(*a, **k)
+
+        extend_kernel.extend_walk = spy
+        try:
+            chain()
+        finally:
+            extend_kernel.extend_walk = real_walk
+        if len(seen) != 1:
+            raise AssertionError(f"{len(seen)} extend walks per chain")
+        wargs, wkw = seen[0]
+        ek = extend_kernel.extend_walk_cuda(*wargs, **wkw)
+        ep = extend_kernel.extend_walk_plain(*wargs, **wkw)
+        eerr = max(float((a.double() - b.double()).abs().max())
+                   for a, b in zip(ek, ep))
+        n_on = ek[2]
+        log(f"extend: {tuple(n_on.shape)} walks (B, W), S={wargs[0].shape[2]}"
+            f", steps run {int(n_on.sum())} of "
+            f"{n_on.numel() * (wkw['ext_lim'] + 1)} (longest "
+            f"{int(n_on.max())}); kernel vs plain in vals/scs/n_on/so: max "
+            f"abs diff {eerr} (tol 0, exact)")
+        if not all(torch.equal(a, b) for a, b in zip(ek, ep)):
+            raise AssertionError("extend kernel disagrees with its plain "
+                                 "version")
+        e_ms = median_ms(torch, lambda: extend_kernel.extend_walk_cuda(
+            *wargs, **wkw), 20)
+        e_plain = median_ms(torch, lambda: extend_kernel.extend_walk_plain(
+            *wargs, **wkw), 5)
+        results.append(("extend", "worldtpu_torch/csrc/extend.cu",
+                        "worldtpu/ops/extend_kernel.py:44",
+                        counts["wt_extend"], eerr, e_ms, e_plain))
+
+        # the zc phase-1 entry, its own path: counts from 0
+        groups = zc_kernel.make_groups(geo)
+        _build.launches.clear()
+        evs = zc_kernel.zc_events(filt, geo)
+        torch.cuda.synchronize()
+        ev_launches = _build.launches["wt_zc_events"]
+        if ev_launches != len(groups):
+            raise AssertionError(f"zc events: {ev_launches} launches for "
+                                 f"{len(groups)} groups")
+        zeerr, kept, same = 0.0, 0, True
+        for g, (ev, cc) in zip(groups, evs):
+            pev, pcc = zc_kernel.zc_events_plain(filt, g.lo, g.hi,
+                                                 e_cap=g.e_cap,
+                                                 c_row=g.c_row)
+            same = same and torch.equal(cc, pcc) and torch.equal(ev, pev)
+            fin = torch.isfinite(pev)
+            if torch.equal(fin, torch.isfinite(ev)):
+                zeerr = max(zeerr, float((ev - pev)[fin].abs().max()))
+            else:
+                same = False
+            kept += int(pcc.sum())
+        log(f"zc events: {len(groups)} groups, e_cap {groups[0].e_cap}.."
+            f"{groups[-1].e_cap}, c_row {groups[0].c_row}..{groups[-1].c_row}"
+            f", {kept} kept events; kernel vs plain: counts and +inf "
+            f"positions equal {same}, max abs diff {zeerr} (tol 0, exact)")
+        if not same:
+            raise AssertionError("zc events kernel disagrees with its plain "
+                                 "version")
+        ze_ms = median_ms(torch, lambda: zc_kernel.zc_events(filt, geo), 10)
+        ze_plain = median_ms(torch, lambda: [zc_kernel.zc_events_plain(
+            filt, g.lo, g.hi, e_cap=g.e_cap, c_row=g.c_row)
+            for g in groups], 3)
+        log(f"zc split: events alone (phase 1, {len(groups)} launches) "
+            f"{ze_ms:.3f} ms beside the full zc kernel {z_ms:.3f} ms  "
+            f"[{card}]")
+        results.append(("zc_events", "worldtpu_torch/csrc/zc_events.cu",
+                        "worldtpu/ops/zc_kernel.py:349", ev_launches, zeerr,
+                        ze_ms, ze_plain))
+
+        # the contour chain and the main path with the plain walk (before
+        # the extend kernel) and with the kernel, in turns in this process
+        walls = {"plain": [], "kernel": []}
+        paths = {"plain": [], "kernel": []}
+        for mode in ("plain", "kernel", "kernel", "plain"):
+            if mode == "plain":
+                extend_kernel.extend_walk = extend_kernel.extend_walk_plain
+            try:
+                chain()
+                walls[mode].append(round(wall_ms(torch, chain, 10), 3))
+                paths[mode].append(round(wall_ms(
+                    torch, lambda: batch_wav_to_wav(x, noise, **kw), 5), 3))
+            finally:
+                extend_kernel.extend_walk = real_walk
+        log(f"contour chain (fix_and_smooth, B={BATCH}) wall, medians of 10 "
+            f"in turns: plain walk {walls['plain']} ms, extend kernel "
+            f"{walls['kernel']} ms; main path, medians of 5: plain walk "
+            f"{paths['plain']} ms, extend kernel {paths['kernel']} ms  "
+            f"[{card}]")
+        extend_kernel.extend_walk = extend_kernel.extend_walk_plain
+        try:
+            _, _, st_plain = stage_profile(
+                torch, lambda: batch_wav_to_wav(x, noise, **kw))
+        finally:
+            extend_kernel.extend_walk = real_walk
+        hp, dp = st_plain["wt.contour"]
+        hk_, dk_ = stages["wt.contour"]
+        log(f"profiled wt.contour: plain walk host {hp:.3f} ms device "
+            f"{dp:.3f} ms; extend kernel host {hk_:.3f} ms device "
+            f"{dk_:.3f} ms  [{card}]")
     for r in results:
         log(f"{r[0]}: kernel {r[5]:.3f} ms, plain {r[6]:.3f} ms  [{card}]")
 
@@ -382,10 +518,103 @@ def main():
         raise AssertionError("the port on the card disagrees with the port "
                              "on the CPU")
 
+    # ---- 6. the user entry points on the card ----
+    from worldtpu_torch import api
+    _build.launches.clear()
+    hk = H.HarvestKernel(FS, T, f0_floor=40.0, device=dev)
+    t0 = time.perf_counter()
+    hres = hk.compute_batch(x, check_capacity=True)
+    h_ms = (time.perf_counter() - t0) * 1000
+    viol = H.zc_capacity_violations_batch(x, geo=geo)
+    hf0 = torch.tensor(np.stack([r[0] for r in hres]), dtype=torch.float32,
+                       device=dev)
+    same = torch.equal((hf0 * PITCH).to(torch.float32), f0)
+    log(f"HarvestKernel.compute_batch(check_capacity=True), B={BATCH}: "
+        f"{h_ms:.1f} ms, zc event-buffer overflows {viol.tolist()}, F0 "
+        f"equal to the main path's (before pitch scaling): {same}")
+    if bool(viol.any()) or not same:
+        raise AssertionError("HarvestKernel disagrees with the main path")
+    # one long utterance (the batch's audio end to end, past the 8192
+    # frames where CPU input takes the host chain): the card keeps the
+    # device contour chain
+    x_long = torch.cat([x[i, :int(n)] for i, n in enumerate(lengths)])
+    hk_long = H.HarvestKernel(FS, x_long.shape[0], f0_floor=40.0, device=dev)
+    _build.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    l_ms = []
+    for _ in range(2):          # the first call at a new geometry is cold
+        t0 = time.perf_counter()
+        f0_long, _ = hk_long.compute(x_long)
+        l_ms.append((time.perf_counter() - t0) * 1000)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    voiced_long = float((f0_long > 0).mean())
+    log(f"HarvestKernel.compute, one {x_long.shape[0] / FS:.2f} s utterance "
+        f"({hk_long.geo.f0_length} frames of 1 ms): first call "
+        f"{l_ms[0]:.1f} ms, second {l_ms[1]:.1f} ms, peak device memory "
+        f"{peak_gb:.2f} GiB, voiced {voiced_long:.3f}, launches "
+        f"{dict(_build.launches)}  [{card}]")
+    if (f0_long.shape != (hk_long.get_samples(),)
+            or not np.isfinite(f0_long).all() or voiced_long < 0.2
+            or _build.launches["wt_extend"] < 1):
+        raise AssertionError("long-utterance Harvest on the card")
+    _build.launches.clear()
+
+    world = api.World(fs22, f0_floor=40.0, device=dev)
+    world.copy_synthesis(x22, pitch_scale=PITCH, duration_scale=DUR)
+    t0 = time.perf_counter()
+    yw, f0w = world.copy_synthesis(x22, pitch_scale=PITCH,
+                                   duration_scale=DUR)
+    w_ms = (time.perf_counter() - t0) * 1000
+    rms_w = float(np.sqrt(np.mean(yw ** 2)))
+    log(f"World.copy_synthesis t22 ({len(x22) / fs22:.2f} s): {w_ms:.1f} ms "
+        f"wall, output {yw.shape[0]} samples, rms {rms_w:.4f}, voiced "
+        f"{float((f0w > 0).mean()):.3f}  [{card}]")
+    if yw.shape[0] != out22 or not np.isfinite(yw).all() or rms_w < 0.01:
+        raise AssertionError("World.copy_synthesis output")
+    entry_counts = dict(_build.launches)
+    log(f"entry points' launches: {entry_counts}")
+    for k in ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend"):
+        if entry_counts.get(k, 0) < 1:
+            raise AssertionError(f"kernel {k} not launched by the entry "
+                                 f"points")
+
+    fx = str(root / "tests" / "fixtures" / "t22.wav")
+    with tempfile.TemporaryDirectory() as td:
+        pre, syn, fused = (str(pathlib.Path(td) / n)
+                           for n in ("p", "syn.wav", "fused.wav"))
+        for args in (["analyze", fx, pre, "--f32"],
+                     ["synthesize", pre, syn, "--f32", "--f0-scale", "1.2"],
+                     ["copy-syn", fx, fused, "--fused", "--f0-scale",
+                      "1.2"]):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "worldtpu_torch.cli",
+                                *args, "--device", "cuda"], cwd=root,
+                               capture_output=True, text=True, timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(f"cli {args[0]} exited {r.returncode}:"
+                                     f"\n{r.stdout[-2000:]}\n"
+                                     f"{r.stderr[-2000:]}")
+            log(f"cli {args[0]}: rc 0 in {time.perf_counter() - t0:.1f} s")
+        for ext in (".f0", ".spec", ".ap"):
+            if not pathlib.Path(pre + ext).stat().st_size:
+                raise AssertionError(f"cli analyze wrote no {ext}")
+        for path in (syn, fused):
+            yc, fsc = read_wav(path)
+            rms_c = float(np.sqrt(np.mean(yc ** 2)))
+            log(f"cli output {pathlib.Path(path).name}: {yc.shape[0]} "
+                f"samples at {fsc} Hz, rms {rms_c:.4f}")
+            if fsc != fs22 or not np.isfinite(yc).all() or rms_c < 0.01:
+                raise AssertionError(f"cli output {path}")
+
+    jaxy = [m for m in sys.modules
+            if m in ("jax", "worldtpu") or m.startswith(("jax.", "worldtpu."))]
+    if jaxy:
+        raise AssertionError(f"the smoke test imported {jaxy}")
+
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
-                    launches=int(counts.get(key, 0)), max_abs_err=err,
-                    ms=ms, plain_ms=pms)
-               for n, src, rep, key, err, ms, pms in results]
+                    launches=int(launched), max_abs_err=err, ms=ms,
+                    plain_ms=pms)
+               for n, src, rep, launched, err, ms, pms in results]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,9 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-from worldtpu_torch import _build
+from worldtpu_torch import _build, api
+from worldtpu_torch.analysis import contour_device as TCD
 from worldtpu_torch.analysis import harvest as TH
 from worldtpu_torch.analysis.cheaptrick import CheapTrickKernel
+from worldtpu_torch.ops import extend_kernel as TE
 from worldtpu_torch.ops import ola_kernel as TO
 from worldtpu_torch.ops import refine_kernel as TR
 from worldtpu_torch.ops import zc_kernel as TZ
@@ -116,8 +118,66 @@ def test_main_path_launches_kernels(dev):
         return_overflow=True)
     torch.cuda.synchronize()
     assert {k: _build.launches[k] for k in ("wt_zc", "wt_refine_sums",
-                                            "wt_ola")} == \
-        {"wt_zc": 1, "wt_refine_sums": 1, "wt_ola": 1}
+                                            "wt_ola", "wt_extend")} == \
+        {"wt_zc": 1, "wt_refine_sums": 1, "wt_ola": 1, "wt_extend": 1}
     assert y.shape == (2, out_len) and bool(torch.isfinite(y).all())
     assert not bool(ovf.any())
     assert float((f0 > 0).float().mean()) > 0.3
+
+
+def _walk_inputs(stage_inputs):
+    """The extend walk's inputs as fix_step3 builds them, captured from a
+    real contour chain on the card."""
+    x, geo, _ = stage_inputs
+    cand, score = TH.harvest_device_stages(
+        x, torch.zeros(x.shape[0], device=x.device), geo=geo)
+    seen = []
+    real = TE.extend_walk
+
+    def spy(*a, **kw):
+        seen.append((a, kw))
+        return real(*a, **kw)
+
+    TE.extend_walk = spy
+    try:
+        TCD.fix_and_smooth(cand, score, geo.n_grid(), geo.frame_period)
+    finally:
+        TE.extend_walk = real
+    assert len(seen) == 1
+    return seen[0]
+
+
+def test_extend_kernel_matches_plain(stage_inputs):
+    args, kw = _walk_inputs(stage_inputs)
+    n0 = _build.launches["wt_extend"]
+    k = TE.extend_walk(*args, **kw)
+    assert _build.launches["wt_extend"] == n0 + 1
+    p = TE.extend_walk_plain(*args, **kw)
+    # the same selection and comparisons, value for value: exact
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert int(k[2].max()) > 0
+
+
+def test_zc_events_kernel_matches_plain(stage_inputs):
+    _, geo, y = stage_inputs
+    filt = TH.band_filter(y, geo)
+    groups = TZ.make_groups(geo)
+    n0 = _build.launches["wt_zc_events"]
+    outs = TZ.zc_events(filt, geo)
+    assert _build.launches["wt_zc_events"] == n0 + len(groups)
+    for g, (ev, ccol) in zip(groups, outs):
+        pev, pccol = TZ.zc_events_plain(filt, g.lo, g.hi, e_cap=g.e_cap,
+                                        c_row=g.c_row)
+        assert torch.equal(ccol, pccol)
+        assert torch.equal(ev, pev)
+
+
+def test_world_copy_synthesis_launches_extend(dev):
+    fs = 22050
+    x = _vowels(fs, 1)[0]
+    world = api.World(fs, f0_floor=40.0, device=dev)
+    _build.launches.clear()
+    y, f0 = world.copy_synthesis(x, pitch_scale=1.1)
+    assert _build.launches["wt_extend"] >= 1
+    assert np.isfinite(y).all() and (f0 > 0).mean() > 0.3

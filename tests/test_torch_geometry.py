@@ -86,11 +86,24 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+#: the JAX package's numpy-only modules the port reads (file I/O and
+#: metrics for the CLI, the host contour for long utterances); each is
+#: imported inside the function that needs it
+NUMPY_ONLY_IMPORTS = {
+    "from worldtpu.io import params, wav",
+    "from worldtpu.metrics import MetricsRecorder",
+    "from worldtpu.analysis import contour",
+}
+
+
 def test_no_jax_import_in_sources():
     import pathlib
     root = pathlib.Path(TH.__file__).resolve().parents[1]
     for path in root.rglob("*.py"):
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
-        assert "from worldtpu." not in text and "from worldtpu import" \
-            not in text, path
+        assert "import worldtpu." not in text, path
+        for line in text.splitlines():
+            line = line.strip()
+            if line.startswith(("from worldtpu.", "from worldtpu import")):
+                assert line in NUMPY_ONLY_IMPORTS, (path, line)

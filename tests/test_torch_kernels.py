@@ -1,10 +1,14 @@
-"""The port's three kernel modules (zc, refine, OLA) on the CPU, where each
-wrapper runs its plain PyTorch version, against the JAX package.
+"""The port's kernel modules zc (with zc events), refine and OLA on the
+CPU, where each wrapper runs its plain PyTorch version, against the JAX
+package.
 
 zc is compared with the jnp twin the TPU kernel is tested against
 (``vmap(harvest._band_candidates)``; the Pallas zc in interpret mode takes
-~40 s a case).  refine and OLA are compared with their Pallas kernels in
-interpret mode, which is what the TPU computes."""
+~40 s a case).  zc events, refine and OLA are compared with their Pallas
+kernels in interpret mode, which is what the TPU computes; the zc capacity
+model with JAX's dense one.  (The extend walk: test_torch_extend.py.)"""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +17,7 @@ import pytest
 import torch
 
 from worldtpu.analysis import harvest as H
+from worldtpu.ops import zc_kernel as Z
 from worldtpu.ops.ola_kernel import overlap_add as j_overlap_add
 from worldtpu.ops.refine_kernel import refine_stage_pallas
 from worldtpu_torch import convert
@@ -192,3 +197,108 @@ def test_cuda_entry_checks_inputs():
     starts = torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         TO.overlap_add_cuda(resp, starts, 100)
+
+
+@functools.lru_cache(maxsize=2)
+def _events_case(kind):
+    """Band signals [nb, L] of a short 16 kHz vowel, or of a bare 3 kHz
+    tone, whose stopband leak crosses far above every low band's column
+    capacity c_row and event capacity e_cap (the clamp)."""
+    fs = 16000
+    if kind == "vowel":
+        x = _vowel(fs, 0.25, 170.0, 7)
+    else:
+        t = np.arange(int(fs * 0.3)) / fs
+        x = np.sin(2 * np.pi * 3000.0 * t).astype(np.float32)
+    geo = H.HarvestGeometry(fs, len(x))
+    y = H.decimate_stage(jnp.asarray(x), ratio=geo.ratio,
+                         y_length=geo.y_length)
+    filt = np.asarray(jnp.concatenate(
+        [H._band_filter_matmul(y, geo, jnp.float32, lo, hi, Lg)
+         for lo, hi, Lg in H._conv_groups(geo)], axis=0))
+    tgeo = convert.geometry_from_worldtpu(vars(geo))
+    outs = TZ.zc_events(torch.tensor(filt)[None], tgeo)
+    return geo, filt, outs
+
+
+@pytest.mark.parametrize("fs,floor,dur", [(16000, 71.0, 0.25),
+                                          (22050, 40.0, 4.46),
+                                          (48000, 71.0, 9.0)])
+def test_zc_groups_match_jax(fs, floor, dur):
+    """The group capacities field for field, down to the long-input frame
+    tile (ft 1 past 8000 frames)."""
+    geo = H.HarvestGeometry(fs, int(fs * dur), f0_floor=floor)
+    tgeo = convert.geometry_from_worldtpu(vars(geo))
+    jg = Z.make_groups(geo, n_groups=Z._NGROUPS)
+    assert [vars(a) for a in jg] == [vars(b) for b in TZ.make_groups(tgeo)]
+
+
+def _jax_events(geo, filt, g):
+    y_len = geo.y_length
+    stot = -(-y_len // 128)
+    fp = np.pad(filt, ((0, 0), (0, stot * 128 - y_len)))
+    filt_t = jnp.asarray(fp.reshape(-1, stot, 128).transpose(0, 2, 1))
+    ev, ccol = Z._zc_events_call(filt_t[g.lo:g.hi], y_length=y_len,
+                                 stot=stot, e_cap=g.e_cap, c_row=g.c_row,
+                                 interpret=True, rb=2)
+    return (np.asarray(ev)[:, :, :4].transpose(0, 2, 1),
+            np.asarray(ccol)[:, :4, :stot])
+
+
+@pytest.mark.parametrize("kind,gi", [("vowel", g) for g in range(10)]
+                         + [("tone", 0), ("tone", 9)])
+def test_zc_events_plain_matches_pallas_interpret(kind, gi):
+    """Every band group of the vowel, and the tone's lowest group (columns
+    past c_row, the buffer clamped at e_cap - c_row, the pad columns'
+    +inf writes) and highest: counts equal, +inf in the same places,
+    finite values equal."""
+    geo, filt, outs = _events_case(kind)
+    g = Z.make_groups(geo, n_groups=Z._NGROUPS)[gi]
+    ev, ccol = outs[gi]
+    jev, jccol = _jax_events(geo, filt, g)
+    assert ev.shape == (1, g.hi - g.lo, 4, g.e_cap)
+    np.testing.assert_array_equal(ccol[0].numpy(), jccol)
+    np.testing.assert_array_equal(ev[0].numpy(), jev)
+    if kind == "tone" and gi == 0:
+        assert jccol.max() == g.c_row
+        assert (jccol.sum(-1) > g.e_cap - g.c_row).any()
+
+
+@pytest.mark.parametrize("kind", ["vowel", "tone"])
+def test_zc_capacity_violations_match_jax(kind):
+    geo, filt, _ = _events_case(kind)
+    ref = np.asarray(Z.capacity_violations(jnp.asarray(filt), geo))
+    tgeo = convert.geometry_from_worldtpu(vars(geo))
+    out = TZ.capacity_violations(torch.tensor(filt)[None], tgeo)[0].numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert (ref == 0).all() if kind == "vowel" else (ref > 0).all()
+
+
+@pytest.mark.parametrize("kind", ["vowel", "tone"])
+def test_zc_event_overflows_count_the_kernel_capacity(kind):
+    """event_overflows counts the (band, crossing type) pairs with more
+    than e_max events (a numpy count); only bands among them change their
+    zc candidates when the event buffer grows."""
+    geo, filt, _ = _events_case(kind)
+    tgeo = convert.geometry_from_worldtpu(vars(geo))
+    g = filt[:, 1:] - filt[:, :-1]
+    counts = np.stack([((s[:, :-1] > 0) & (s[:, 1:] <= 0)).sum(-1)
+                       for s in (filt, -filt, g, -g)], axis=1)
+    over = counts > tgeo.e_max
+    out = TZ.event_overflows(torch.tensor(filt)[None], tgeo)
+    assert out.shape == (1,) and int(out[0]) == int(over.sum())
+    assert over.any() if kind == "tone" else not over.any()
+    filt_t = torch.tensor(filt)[None]
+    bounds = torch.tensor(tgeo.boundary_f0, dtype=torch.float32)
+    args = TZ.geometry_args(tgeo)
+    small = TZ.band_candidates_plain(filt_t, bounds, **args)[0]
+    args["e_max"] = int(counts.max()) + 2
+    large = TZ.band_candidates_plain(filt_t, bounds, **args)[0]
+    changed = (small != large).any(-1).numpy()
+    assert not (changed & ~over.any(1)).any()
+
+
+def test_zc_events_cuda_checks_inputs():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TZ.zc_events_cuda(torch.zeros((1, 4, 300)), 0, 2, e_cap=128,
+                          c_row=8)

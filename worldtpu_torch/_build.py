@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes`` (no PyTorch headers, so a build
+Each source is compiled with ``nvcc`` to an object file, all of them at
+once in parallel, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  The library lands in ``build/worldtpu_torch/<hash>/`` at
 the repository root, keyed by a hash of the sources and flags, and is
 built at first use — never at import, so the CPU-only tests import every
@@ -14,12 +15,14 @@ by kernel name), so a caller can show that a run went through the kernels.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -32,7 +35,7 @@ BUILD_ROOT = CSRC.parent.parent / "build" / "worldtpu_torch"
 #: refine windows end in integer or threshold decisions where a fused
 #: multiply-add could flip a knife edge against the plain version.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 #: kernel name -> launches since the last clear()
 launches: collections.Counter = collections.Counter()
@@ -52,6 +55,12 @@ _SIGNATURES = {
     "wt_refine_sums": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # resp, starts, out, B, P, fft, T, stream
     "wt_ola": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # cand, score, origin, shift, live, distance, tmp0, vals, scs, n_on, so,
+    # B, W, F, S, E, miss_lim, allowed_range, stream
+    "wt_extend": (_P,) * 11 + (_I,) * 6 + (_F, _P),
+    # filt, ev, ccol, n_rows, nb, lo, nb_g, L, e_cap, c_row, n_cols,
+    # n_store, stream
+    "wt_zc_events": (_P, _P, _P) + (_I,) * 9 + (_P,),
 }
 
 
@@ -64,6 +73,13 @@ def _nvcc():
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
 
 
 def _source_hash(sources):
@@ -84,16 +100,17 @@ def library():
     so = out_dir / "libworldtpu_kernels.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".tmp{os.getpid()}.so"
         t0 = time.perf_counter()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            objs = [f"{tmp}/{src.stem}.o" for src in sources]
+            with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+                list(ex.map(_run, ([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                    str(src)]
+                                   for src, obj in zip(sources, objs))))
+            _run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", f"{tmp}/lib.so",
+                  *objs])
+            os.replace(f"{tmp}/lib.so", so)
         build_seconds = time.perf_counter() - t0
     else:
         build_seconds = 0.0

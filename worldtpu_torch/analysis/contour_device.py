@@ -13,8 +13,9 @@ batch maximum, then a loop of that many masked steps:
 
 Those 3 reads are the chain's only host synchronisations; constants reach
 the device by ``torch.full`` or a per-device cache, never by a blocking
-copy per call.  The extend walk runs a fixed ext_lim+1 = 101 masked steps
-(a stopped walk's steps are no-ops, as after the JAX loop's early exit).
+copy per call.  The extend walk is the extend kernel (ops/extend_kernel.py:
+one CUDA launch on the card, where each walk exits when it stops; on the
+CPU its plain version, ext_lim+1 = 101 masked steps).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
+from worldtpu_torch.ops import extend_kernel as _ext
 from worldtpu_torch.ops.numeric import rdiv
 
 
@@ -93,80 +95,43 @@ def fix_step2(f0, voice_range_minimum=6):
     return torch.where(v & short, torch.zeros_like(f0), f0)
 
 
-def _select_best(ref_f0, cand_rows, allowed_range):
-    """Nearest candidate within allowed_range of each ref (ties keep the
-    LAST equal-error candidate).  ref_f0 [..., K], cand_rows [..., K, S]."""
-    err = torch.abs(ref_f0[..., None] - cand_rows) / ref_f0[..., None]
-    m = torch.amin(err, dim=-1, keepdim=True)
-    S = cand_rows.shape[-1]
-    idx = S - 1 - torch.argmax((err == m).flip(-1).to(torch.uint8), dim=-1,
-                               keepdim=True)
-    best = cand_rows.gather(-1, idx)[..., 0]
-    return torch.where(m[..., 0] <= allowed_range, best,
-                       torch.zeros_like(best))
-
-
-def _score_of(vals, cand_rows, score_rows):
-    """Max score over candidates equal to vals (0 if none)."""
-    m = cand_rows == vals[..., None]
-    s = torch.amax(torch.where(m, score_rows, -torch.inf), dim=-1)
-    return torch.where(m.any(-1), s, torch.zeros_like(s))
-
-
 def _extend(ch, ss, st, ed, n_sec, R, candidates, scores, allowed_range,
             grid_ms):
     """Extend the first R sections outward, both directions at once
     (reference extendF0): each walk accepts the nearest candidate within
     allowed_range of its running reference F0 and stops after miss_lim
-    consecutive misses or ext_lim frames.  Writes the walked values into
-    ch/ss in place; returns the shifted origins (st2, ed2)."""
+    consecutive misses or ext_lim frames (the extend kernel).  Writes the
+    walked values into ch/ss in place; returns the shifted origins
+    (st2, ed2)."""
     B, F, S = candidates.shape
     dev = candidates.device
     ext_lim = max(1, round(100 / grid_ms))
     miss_lim = max(1, round(4 / grid_ms))
     ed_c, st_c = ed[:, :R], st[:, :R]
     origin = torch.cat([ed_c, st_c], dim=1)                     # [B, 2R]
-    shift = torch.cat([torch.ones(R, dtype=torch.int64, device=dev),
-                       -torch.ones(R, dtype=torch.int64, device=dev)])
+    shift = torch.cat([torch.ones((B, R), dtype=torch.int64, device=dev),
+                       -torch.ones((B, R), dtype=torch.int64, device=dev)],
+                      dim=1)
     limit = torch.cat([torch.clamp(ed_c + ext_lim, max=F - 2),
                        torch.clamp(st_c - ext_lim, min=1)], dim=1)
     distance = torch.abs(limit - origin)
     sec = torch.arange(R, device=dev).repeat(2)                 # row -> section
     live = (sec < n_sec[:, None])
     bidx = torch.arange(B, device=dev)[:, None]
-    tmp = ch[bidx, sec, origin.clamp(0, F - 1)]
-    cnt = torch.zeros_like(origin)
-    so = origin.clone()
-    stopped = torch.zeros_like(live)
-    one = torch.ones((), dtype=ch.dtype, device=dev)
-    hist_val, hist_sc, hist_on, hist_col = [], [], [], []
-    for i in range(ext_lim + 1):
-        j = origin + shift * (i + 1)
-        on = live & (i <= distance) & ~stopped
-        jc = j.clamp(0, F - 1)
-        cand_rows = candidates[bidx, jc]                        # [B, 2R, S]
-        score_rows = scores[bidx, jc]
-        val = _select_best(torch.where(tmp > 0, tmp, one), cand_rows,
-                           allowed_range)
-        val = torch.where(on, val, torch.zeros_like(val))
-        sc = _score_of(val, cand_rows, score_rows)
-        zero = val == 0.0
-        cnt = torch.where(on, torch.where(zero, cnt + 1, 0), cnt)
-        tmp = torch.where(on & ~zero, val, tmp)
-        so = torch.where(on & ~zero, j, so)
-        stopped = stopped | (on & (cnt == miss_lim))
-        hist_val.append(val)
-        hist_sc.append(sc)
-        hist_on.append(on)
-        hist_col.append(jc)
-    # each walk visits fresh columns and the two directions of a section
-    # never meet, so the accepted steps write unique (row, column) cells;
-    # steps that did not run write to the dump column F
-    on = torch.stack(hist_on, dim=-1)                           # [B, 2R, E]
-    col = torch.where(on, torch.stack(hist_col, dim=-1), F)
+    tmp0 = ch[bidx, sec, origin.clamp(0, F - 1)]
+    vals, scs, n_on, so = _ext.extend_walk(
+        candidates, scores, origin, shift, live, distance, tmp0,
+        ext_lim=ext_lim, miss_lim=miss_lim, allowed_range=allowed_range)
+    # the ON steps form a prefix of each walk; each walk visits fresh
+    # columns and the two directions of a section never meet, so the
+    # accepted steps write unique (row, column) cells; the other steps write
+    # to the dump column F
+    step = torch.arange(ext_lim + 1, device=dev)
+    j = (origin[..., None] + shift[..., None] * (step + 1)).clamp(0, F - 1)
+    col = torch.where(step < n_on[..., None], j, F)             # [B, 2R, E]
     rsec = sec[None, :, None]
-    ch[bidx[..., None], rsec, col] = torch.stack(hist_val, dim=-1)
-    ss[bidx[..., None], rsec, col] = torch.stack(hist_sc, dim=-1)
+    ch[bidx[..., None], rsec, col] = vals
+    ss[bidx[..., None], rsec, col] = scs
     ed2 = ed.clone()
     st2 = st.clone()
     ed2[:, :R] = so[:, :R]
@@ -199,8 +164,8 @@ def fix_step3(f0, candidates, scores, allowed_range=0.18, grid_ms=1):
     in_own = (torch.where(v, rank, s_max)[:, None, :] == rows[:, None])
     zero_c = torch.zeros((), dtype=dt, device=dev)
     ch = Fn.pad(torch.where(in_own, f0[:, None, :], zero_c), (0, 1))
-    ss_zero = _score_of(torch.zeros_like(f0), candidates, scores)
-    ss_run = _score_of(f0, candidates, scores)
+    ss_zero = _ext.score_of(torch.zeros_like(f0), candidates, scores)
+    ss_run = _ext.score_of(f0, candidates, scores)
     ss = Fn.pad(torch.where(in_own, ss_run[:, None, :], ss_zero[:, None, :]),
                 (0, 1))
 

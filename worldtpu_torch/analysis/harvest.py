@@ -323,17 +323,70 @@ def harvest_device_full(x, mean_y, *, geo, n_out):
                                   grid_ms=geo.grid_ms)
 
 
+class ZcCapacityError(RuntimeError):
+    """A band signal has more zero-crossing events of one type than the zc
+    kernel's event buffer holds (``geo.e_max``); past it that band's
+    candidates are wrong.  See ``ops.zc_kernel.event_overflows``."""
+
+
+def zc_capacity_violations_batch(x, *, geo):
+    """[B] counts of the (band, crossing type) pairs of each utterance of
+    x [B, T] whose events overflow the zc kernel's event buffer: the
+    decimation, the filter bank and dense mask reductions."""
+    y = decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
+    return _zc.event_overflows(band_filter(y, geo), geo)
+
+
+#: the f64 parity paths are not ported yet
+F64_NOT_PORTED = ("float64 is not ported to worldtpu_torch yet (ROADMAP "
+                  "Queue 1 item 2, f64 parity paths); use float32")
+
+
+def check_f32(dtype):
+    """Raise NotImplementedError for float64, ValueError for any dtype
+    other than float32."""
+    if dtype == torch.float64:
+        raise NotImplementedError(F64_NOT_PORTED)
+    if dtype != torch.float32:
+        raise ValueError(f"unsupported dtype {dtype}; use torch.float32")
+
+
+def as_f32(x, device):
+    """x (numpy or tensor) as a float32 tensor on device; with device None
+    x must already be a tensor and stays where it is."""
+    if device is None:
+        if not isinstance(x, torch.Tensor):
+            raise ValueError("pass a torch.Tensor or name a device")
+        device = x.device
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+#: 1 ms frames beyond which HarvestKernel.compute_batch runs the contour
+#: chain of CPU input in numpy float64
+HOST_CONTOUR_FRAMES = 8192
+
+
 class HarvestKernel(torch.nn.Module):
-    """Harvest for one (fs, x_length) geometry: f32 batches on any
-    device -> F0 at the frame period."""
+    """Harvest for one (fs, x_length) geometry: f32 batches -> F0 at the
+    frame period, on the device of ``device`` (or of the input tensor when
+    ``device`` is None).
+
+    ``forward`` keeps everything on the device; ``compute`` and
+    ``compute_batch`` mirror ``worldtpu.analysis.harvest.HarvestKernel``
+    and return numpy.  Input on the card always takes the device contour
+    chain.  CPU input longer than HOST_CONTOUR_FRAMES frames of the 1 ms
+    grid takes the numpy float64 chain (``worldtpu.analysis.contour``)
+    instead, since the dense chain's section layout grows as F^2."""
 
     def __init__(self, fs, x_length, f0_floor=C.FLOOR_F0, f0_ceil=C.CEIL_F0,
-                 frame_period=5.0, target_fs=8000.0, channels_in_octave=40.0):
+                 frame_period=5.0, target_fs=8000.0, channels_in_octave=40.0,
+                 device=None):
         super().__init__()
         self.geo = HarvestGeometry(
             fs, x_length, f0_floor=f0_floor, f0_ceil=f0_ceil,
             frame_period=frame_period, target_fs=target_fs,
             channels_in_octave=channels_in_octave)
+        self.device = None if device is None else torch.device(device)
 
     def forward(self, x):
         """x [B, x_length] float32 -> (f0 [B, n_out], tpos [n_out])."""
@@ -343,3 +396,57 @@ class HarvestKernel(torch.nn.Module):
         tpos = torch.arange(n_out, dtype=x.dtype, device=x.device) \
             * (self.geo.frame_period / 1000.0)
         return f0, tpos
+
+    def get_samples(self):
+        return self.geo.n_grid()
+
+    def _tpos(self):
+        return np.arange(self.get_samples()) * self.geo.frame_period / 1000.0
+
+    def _finish(self, cand, score):
+        """Host contour of one utterance's [F, S] candidates/scores
+        (float64 numpy) -> (f0 [n_out], tpos [n_out])."""
+        from worldtpu.analysis import contour
+        best = contour.fix_f0_contour(cand, score)
+        f0_grid = contour.smooth_f0_contour(best)
+        tpos = self._tpos()
+        x = tpos * 1000.0
+        pick = np.where(x > 0, np.floor(x + 0.5), np.ceil(x - 0.5))
+        pick = np.minimum(self.geo.f0_length - 1, pick.astype(np.int64))
+        return f0_grid[pick], tpos
+
+    def compute(self, x, dtype=torch.float32):
+        """One utterance x [x_length] -> (f0 [n_out], tpos [n_out]) as
+        float64 numpy."""
+        return self.compute_batch(as_f32(x, self.device)[None], dtype)[0]
+
+    def compute_batch(self, x_batch, dtype=torch.float32,
+                      check_capacity=False):
+        """Harvest over [B, x_length] utterances -> [(f0, tpos)] per
+        utterance (float64 numpy).  ``check_capacity`` first counts the zc
+        event-buffer overflows and raises ZcCapacityError if any utterance
+        has one."""
+        check_f32(dtype)
+        x = as_f32(x_batch, self.device)
+        with torch.no_grad():
+            if check_capacity:
+                v = zc_capacity_violations_batch(x, geo=self.geo).cpu()
+                if bool(v.any()):
+                    bad = torch.nonzero(v)[:, 0].tolist()
+                    raise ZcCapacityError(
+                        f"zc event buffer ({self.geo.e_max} events per band "
+                        f"and crossing type) overflowed for utterances "
+                        f"{bad}, in {v[bad].tolist()} (band, type) pairs; "
+                        f"the input's band-limited crossing rate is outside "
+                        f"Harvest's model (a full-band chirp or a noise "
+                        f"burst?)")
+            if (x.device.type != "cpu"
+                    or self.geo.f0_length <= HOST_CONTOUR_FRAMES):
+                f0, _ = self(x)
+                f0 = f0.cpu().numpy().astype(np.float64)
+                return [(f0[i], self._tpos()) for i in range(len(f0))]
+            mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+            cand, score = harvest_device_stages(x, mean, geo=self.geo)
+            cand = cand.numpy().astype(np.float64)
+            score = score.numpy().astype(np.float64)
+        return [self._finish(cand[i], score[i]) for i in range(len(cand))]

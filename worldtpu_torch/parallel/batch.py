@@ -34,11 +34,8 @@ def batch_copy_synthesis(x, f0, tpos, noise, *, fs, fft_size,
         (y [B, out_length], spec [B, F, K], ap [B, F, K]); with
         ``return_overflow`` a trailing [B] bool of pulse-bound overflows.
     """
-    with record_function("wt.cheaptrick"):
-        spec = cheaptrick_frames(x, f0, tpos, fs=fs, fft_size=fft_size,
-                                 max_half_window=max_half_window)
-    with record_function("wt.d4c"):
-        ap = d4c_frames(x, f0, tpos, fs=fs, fft_size_out=fft_size)
+    spec, ap = _analysis(x, f0, tpos, fs=fs, fft_size=fft_size,
+                         max_half_window=max_half_window)
     y, ovf = _syn.synthesis_frames_impl(
         f0, spec, ap, noise, fs=fs, fft_size=fft_size,
         frame_period_s=frame_period_s, out_length=out_length,
@@ -58,17 +55,45 @@ def batch_wav_to_wav(x, noise, *, geo, fs, fft_size, max_half_window,
     Returns (y, f0 [B, n_grid]), plus a [B] bool of pulse-bound overflows
     with ``return_overflow`` (size max_pulses with
     synthesis.capacity_max_pulses and check it)."""
-    n_grid = geo.n_grid()
-    mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-    f0 = _hv.harvest_device_full(x, mean, geo=geo, n_out=n_grid)
-    f0 = (f0 * pitch_scale).to(x.dtype)
-    tpos = torch.arange(f0.shape[1], dtype=x.dtype, device=x.device) \
-        * (geo.frame_period / 1000.0)
+    f0, tpos = _scaled_f0(x, geo, pitch_scale)
     y, _, _, ovf = batch_copy_synthesis(
         x, f0, tpos, noise, fs=fs, fft_size=fft_size,
         max_half_window=max_half_window, frame_period_s=frame_period_s,
         out_length=out_length, max_pulses=max_pulses, return_overflow=True)
     return (y, f0, ovf) if return_overflow else (y, f0)
+
+
+@torch.no_grad()
+def batch_analyze(x, *, geo, fs, fft_size, max_half_window, pitch_scale=1.0):
+    """Analysis in one call: [B, T] wavs -> (f0 [B, n_grid], spec
+    [B, n_grid, K], ap [B, n_grid, K]) — Harvest (with the device contour
+    chain), pitch scaling, CheapTrick and D4C on the scaled F0."""
+    f0, tpos = _scaled_f0(x, geo, pitch_scale)
+    spec, ap = _analysis(x, f0, tpos, fs=fs, fft_size=fft_size,
+                         max_half_window=max_half_window)
+    return f0, spec, ap
+
+
+def _scaled_f0(x, geo, pitch_scale):
+    """Harvest F0 [B, n_grid] of x [B, T] times pitch_scale, and the frame
+    times [n_grid]."""
+    n_grid = geo.n_grid()
+    mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    f0 = _hv.harvest_device_full(x, mean, geo=geo, n_out=n_grid)
+    f0 = (f0 * pitch_scale).to(x.dtype)
+    tpos = torch.arange(n_grid, dtype=x.dtype, device=x.device) \
+        * (geo.frame_period / 1000.0)
+    return f0, tpos
+
+
+def _analysis(x, f0, tpos, *, fs, fft_size, max_half_window):
+    """CheapTrick and D4C of x [B, T] at F0 [B, F]: (spec, ap)."""
+    with record_function("wt.cheaptrick"):
+        spec = cheaptrick_frames(x, f0, tpos, fs=fs, fft_size=fft_size,
+                                 max_half_window=max_half_window)
+    with record_function("wt.d4c"):
+        ap = d4c_frames(x, f0, tpos, fs=fs, fft_size_out=fft_size)
+    return spec, ap
 
 
 def pad_batch(waves, fs, frame_period_ms=5.0):

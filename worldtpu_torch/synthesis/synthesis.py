@@ -11,6 +11,7 @@ tail pulses at sample T-1.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -185,6 +186,19 @@ def synthesis_frames_impl(f0, spectrogram, aperiodicity, noise, *, fs,
     return (y, overflowed) if return_overflow else y
 
 
+def synthesis_frames(f0, spectrogram, aperiodicity, noise, *, fs, fft_size,
+                     frame_period_s, out_length, max_pulses,
+                     return_overflow=False):
+    """One utterance: f0 [F], spectrogram and aperiodicity [F, K], noise
+    [max_pulses, fft_size] -> y [out_length] (and its overflow flag, a
+    0-dim bool tensor, with ``return_overflow``)."""
+    y, ovf = synthesis_frames_impl(
+        f0[None], spectrogram[None], aperiodicity[None], noise[None], fs=fs,
+        fft_size=fft_size, frame_period_s=frame_period_s,
+        out_length=out_length, max_pulses=max_pulses, return_overflow=True)
+    return (y[0], ovf[0]) if return_overflow else y[0]
+
+
 def pulse_train(f0, spectrogram, aperiodicity, noise, *, fs, fft_size,
                 frame_period_s, out_length, max_pulses):
     """Everything before the overlap-add: (resp [B, P, fft_size],
@@ -215,6 +229,21 @@ def make_noise(generator, batch, max_pulses, fft_size, dtype=torch.float32,
     normal) from a torch.Generator."""
     return torch.randn((batch, max_pulses, fft_size), generator=generator,
                        dtype=dtype, device=device)
+
+
+def estimate_max_pulses(f0, fs, fft_size, out_length, margin=1.15,
+                        pitch_scale=1.0):
+    """Pulse-count bound from a known F0 contour [F] or [B, F] (numpy):
+    the number of whole phase cycles, the mean of the F0 with the 500 Hz
+    unvoiced rate times the duration, with a margin, rounded up to 256 and
+    capped by default_max_pulses.  ``pitch_scale`` scales the voiced F0
+    only, as the main path does before its unvoiced substitution."""
+    f0 = np.atleast_2d(np.asarray(f0, np.float64)) * pitch_scale
+    lowest = fs / fft_size + 1.0
+    fhat = np.where(f0 < lowest, C.DEFAULT_F0, f0)
+    cycles = float(np.mean(fhat, axis=-1).max()) * (out_length / fs)
+    est = int(cycles * margin) + 32
+    return min(default_max_pulses(out_length, fs), -(-est // 256) * 256)
 
 
 def capacity_max_pulses(out_length, fs, f0_cap=C.DEFAULT_F0, margin=1.15):

@@ -7,20 +7,25 @@ Phases (any failure raises, so the exit code is not 0):
   1. environment: python/torch/CUDA versions and the card's name and power
      limit (nvidia-smi);
   2. build: the CUDA kernels from worldtpu_torch/csrc/*.cu for sm_90a (one
-     nvcc per source, all started together);
+     nvcc per source, all started together), with nvcc's -Xptxas -v report
+     (registers, shared memory, spills) of the refine and zc kernels;
   3. main path: batch_wav_to_wav on B=8 synthetic 22.05 kHz utterances
      (bench.synth_utterance_diverse) padded to a multiple of 4096 samples,
      f0_floor 40, pitch x1.2, duration x1.25 (frame period 6.25 ms at
      synthesis), static pulse capacity; checks shape, finiteness, level,
      pulse overflow, and that the zc, refine, OLA and extend kernels each
-     ran; reports wall time per batch and the realtime factor, the host
+     ran, and which event layout zc used; reports wall time per batch and
+     the realtime factor, the host
      synchronisations of the main path and of its contour chain (counted
      with CUDA sync debug mode), and, from one torch.profiler run of the
      main path, each stage's host and device time (the ``wt.*`` ranges)
      and the device's busy share of that run's wall;
   4. per kernel, at the main path's shapes: kernel against its plain
      PyTorch version on the card (stated tolerances), median times of both
-     from CUDA events; the zc phase-1 entry (zc_kernel.zc_events, the zc
+     from CUDA events, the kernel's bound (the larger of its bytes over
+     3.35 TB/s and its operations over 67 TFLOP/s, counted from this run's
+     inputs) and, for OLA, the one PyTorch call that computes the same sums
+     (index_add_); the zc phase-1 entry (zc_kernel.zc_events, the zc
      events kernel's path, driven with the counts set to 0) and the zc
      split (events ms beside full zc ms); the contour chain with the extend
      kernel against the same chain with the plain walk, in turns;
@@ -29,15 +34,20 @@ Phases (any failure raises, so the exit code is not 0):
   6. the user entry points on the card: HarvestKernel.compute_batch with
      the capacity check on the B=8 batch (F0 equal to the main path's),
      HarvestKernel.compute on the batch's audio as one long utterance (the
-     device contour chain past 8192 frames, with its peak device memory),
-     api.World.copy_synthesis on t22, and the CLI (analyze, synthesize,
-     copy-syn --fused) with --device cuda on t22 into a temporary directory.
+     device contour chain past 8192 frames and zc's global event layout,
+     with its peak device memory), api.World.copy_synthesis on t22, and the
+     CLI (analyze, synthesize, copy-syn --fused) with --device cuda on t22
+     into a temporary directory, each in a process where ``jax`` and
+     ``worldtpu`` cannot be imported.
 
 The line before the last is a JSON object {"kernels": [...]}: for each
-kernel its launches in the main path's run (zc_events: in its own path's
-run), its largest difference from its plain version and both times.  The
-last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
-outside the repository, the script exits non-zero and prints no result.
+kernel its launches in the main path's run (``launches_main``; zc_events,
+off the main path, counts ``launches`` in its own path's run), its largest
+difference from its plain version, its time, its plain version's, its
+bound and what bounds it, the share bound/time, and the library call's
+time (null where no single PyTorch call computes the function).  The last
+line is {"ok": true, "device": {...}}.  Without a CUDA device, or outside
+the repository, the script exits non-zero and prints no result.
 """
 
 import collections
@@ -58,12 +68,24 @@ BATCH = 8
 PITCH = 1.2
 DUR = 1.25
 
-# kernel tolerances (kernel vs plain version, same inputs, same card)
-ZC_REL = 1e-4          # candidate Hz, relative, where both are nonzero
-ZC_FLIP_FRAC = 1e-4    # fraction of entries whose band gate may differ
+# kernel tolerances (kernel vs plain version, same inputs, same card);
+# zc, extend and zc events are held to exact equality
 REFINE_REL = 1e-5      # DFT sums, abs error over the largest |sum|
 REFINE_F0_REL = 1e-4   # refined F0, relative, where both are nonzero
 OLA_ATOL, OLA_RTOL = 1e-5, 1e-4
+
+# the H100 SXM's data-sheet peaks at 700 W (the kernels' bounds)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
+
+
+# runs the CLI (its arguments follow -c) where jax and worldtpu cannot be
+# imported, so any import of either by the port fails the command
+CLI_NO_JAX = ("import runpy, sys\n"
+              "sys.modules['jax'] = None\n"
+              "sys.modules['worldtpu'] = None\n"
+              "runpy.run_module('worldtpu_torch.cli', run_name='__main__', "
+              "alter_sys=True)\n")
 
 
 def log(msg):
@@ -91,6 +113,19 @@ def median_ms(torch, fn, reps):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(n_bytes, n_ops):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take to move n_bytes and do n_ops float32 operations (no tensor
+    cores)."""
+    tb = n_bytes / PEAK_BYTES_S * 1e3
+    to = n_ops / PEAK_F32_FLOP_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def count_syncs(torch, fn):
@@ -205,7 +240,12 @@ def main():
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.build_seconds:.1f} s; flags {' '.join(_build.NVCC_FLAGS)})")
+        f"(nvcc {_build.build_seconds:.1f} s; flags {' '.join(_build.NVCC_FLAGS)}"
+        f"; --fmad=true for {sorted(_build.FMAD)}, false for the rest)")
+    for stem in ("refine", "zc"):
+        for line in _build.ptxas_report.get(stem, "").splitlines():
+            if "registers" in line or "spill" in line or "entry" in line:
+                log(f"  ptxas {stem}: {line.strip()}")
 
     # ---- 3. main path ----
     waves = [synth_utterance_diverse(FS, i) for i in range(BATCH)]
@@ -237,10 +277,12 @@ def main():
     run()
     log(f"main path first run (warm-up): {time.perf_counter() - t0:.3f} s")
     _build.launches.clear()
+    zc_kernel.layout_launches.clear()
     t0 = time.perf_counter()
     y, f0, ovf = run()
     walls = [time.perf_counter() - t0]
     counts = dict(_build.launches)
+    main_layouts = dict(zc_kernel.layout_launches)
     for _ in range(4):
         t0 = time.perf_counter()
         run()
@@ -249,7 +291,8 @@ def main():
     audio_s = float(lengths.sum()) / FS
     y_np = y.cpu().numpy()
     rms = float(np.sqrt(np.mean(y_np ** 2)))
-    log(f"main path launches: {counts}")
+    log(f"main path launches: {counts}; zc event layout: {main_layouts} "
+        f"(e_max {geo.e_max})")
     log(f"main path wall per batch: median {wall * 1000:.1f} ms of "
         f"{[round(w * 1000, 1) for w in walls]}; input audio {audio_s:.2f} s; "
         f"realtime factor {audio_s / wall:.1f}x  [{card}]")
@@ -285,7 +328,7 @@ def main():
     busy = sum(a[1] for a in acts)
     log(f"profiled main path: wall {p_wall:.1f} ms (profiler on), device "
         f"busy {busy:.1f} ms = {100 * busy / p_wall:.1f}% of that wall, "
-        f"{len(acts)} device activities  [{card}]")
+        f"{len(acts)} device activities (PR 2's run: busy 35.1 ms)  [{card}]")
     for nm, (h_ms, d_ms) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
         log(f"  stage {nm:18s} host {h_ms:8.3f} ms  device {d_ms:8.3f} ms")
     d_sum = sum(v[1] for v in stages.values())
@@ -314,16 +357,24 @@ def main():
         zerr = float((zk - zp).abs()[both].max())
         log(f"zc: filt {tuple(filt.shape)} -> {tuple(zk.shape)}; "
             f"nonzero {int((zk > 0).sum())} vs {int((zp > 0).sum())}; "
-            f"max rel {rel:.2e} (tol {ZC_REL}), gate flips {flips}")
-        if rel > ZC_REL or flips > ZC_FLIP_FRAC * int((zp > 0).sum()):
+            f"max rel {rel:.2e}, gate flips {flips} (tol 0: bit-exact)")
+        if not torch.equal(zk, zp):
             raise AssertionError("zc kernel disagrees with its plain version")
         z_ms = median_ms(torch, lambda: zc_kernel.band_candidates_cuda(
             filt, bounds, **zargs), 10)
         z_plain = median_ms(torch, lambda: zc_kernel.band_candidates_plain(
             filt, bounds, **zargs), 3)
-        results.append(("zc", "worldtpu_torch/csrc/zc.cu",
-                        "worldtpu/ops/zc_kernel.py:112", counts["wt_zc"],
-                        zerr, z_ms, z_plain))
+        n_rows, L = filt.shape[0] * filt.shape[1], filt.shape[2]
+        # per sample two differences and four sign tests; per frame and
+        # type the interpolation (~12 operations)
+        z_bound = bound(nbytes(filt, bounds, zk),
+                        n_rows * (6 * (L - 1) + 48 * geo.f0_length))
+        results.append(dict(
+            name="zc", source="worldtpu_torch/csrc/zc.cu",
+            replaces="worldtpu/ops/zc_kernel.py:112",
+            launches=counts["wt_zc"],
+            launches_main=counts["wt_zc"], max_abs_err=zerr, ms=z_ms,
+            plain_ms=z_plain, bound=z_bound, library_ms=None))
 
         cand, _, _ = H.candidates_stage(y_dec, mean, geo)
         tpos = torch.arange(geo.f0_length, dtype=torch.float32,
@@ -353,9 +404,22 @@ def main():
             *rk_args, **rkw), 10)
         r_plain = median_ms(torch, lambda: refine_kernel.spectral_sums_plain(
             *rk_args, **rkw), 3)
-        results.append(("refine", "worldtpu_torch/csrc/refine.cu",
-                        "worldtpu/ops/refine_kernel.py:49",
-                        counts["wt_refine_sums"], rerr, r_ms, r_plain))
+        # useful work: 24 multiply-adds per window sample of each active
+        # (frame, slot) pair
+        seg_, _, hw_, _, na_ = rk_args
+        act = (torch.arange(hw_.shape[1], device=dev)[None, :]
+               < na_[:, None])
+        samples = int(((2 * hw_.clamp(max=geo.max_half_window) + 1)
+                       * act).sum())
+        r_bound = bound(nbytes(*rk_args, rk), 48 * samples)
+        log(f"refine: {int(na_.sum())} active pairs of {act.numel()}, "
+            f"{samples} window samples, {48 * samples / 1e9:.3f} GFLOP")
+        results.append(dict(
+            name="refine", source="worldtpu_torch/csrc/refine.cu",
+            replaces="worldtpu/ops/refine_kernel.py:49",
+            launches=counts["wt_refine_sums"],
+            launches_main=counts["wt_refine_sums"], max_abs_err=rerr, ms=r_ms,
+            plain_ms=r_plain, bound=r_bound, library_ms=None))
 
         tpos5 = torch.arange(n_grid, dtype=torch.float32, device=dev) \
             * (geo.frame_period / 1000.0)
@@ -378,9 +442,33 @@ def main():
             resp, starts, out_len), 20)
         o_plain = median_ms(torch, lambda: ola_kernel.overlap_add_plain(
             resp, starts, out_len), 5)
-        results.append(("ola", "worldtpu_torch/csrc/ola.cu",
-                        "worldtpu/ops/ola_kernel.py:51", counts["wt_ola"],
-                        oerr, o_ms, o_plain))
+        # only real pulses need their responses (padding pulses carry
+        # zero responses); one add per response sample
+        real = int((resp != 0).any(-1).sum())
+        o_bound = bound(real * resp.shape[2] * 4 + nbytes(starts, ok_),
+                        real * resp.shape[2])
+        # the library yardstick: the index_add_ of overlap_add_plain, its
+        # flat indices and values built outside the timed window
+        j = torch.arange(resp.shape[2], device=dev)
+        target = starts.to(torch.int64)[..., None] + j
+        okm = (target >= 0) & (target < out_len)
+        rows = torch.arange(BATCH, device=dev)[:, None, None] \
+            * (out_len + 1)
+        flat_t = (torch.where(okm, target, out_len) + rows).reshape(-1)
+        flat_v = torch.where(okm, resp, 0.0).reshape(-1)
+        acc = torch.zeros(BATCH * (out_len + 1), device=dev)
+        o_lib = median_ms(torch, lambda: acc.index_add_(0, flat_t, flat_v),
+                          20)
+        del target, okm, flat_t, flat_v, acc
+        log(f"ola: {real} real pulses of {starts.numel()}; library call "
+            f"index_add_ {o_lib:.3f} ms beside the kernel {o_ms:.3f} ms  "
+            f"[{card}]")
+        results.append(dict(
+            name="ola", source="worldtpu_torch/csrc/ola.cu",
+            replaces="worldtpu/ops/ola_kernel.py:51",
+            launches=counts["wt_ola"],
+            launches_main=counts["wt_ola"], max_abs_err=oerr, ms=o_ms,
+            plain_ms=o_plain, bound=o_bound, library_ms=o_lib))
 
         # the extend walk on the batch's own walks: the arguments the
         # contour chain passes (one call per chain)
@@ -416,9 +504,19 @@ def main():
             *wargs, **wkw), 20)
         e_plain = median_ms(torch, lambda: extend_kernel.extend_walk_plain(
             *wargs, **wkw), 5)
-        results.append(("extend", "worldtpu_torch/csrc/extend.cu",
-                        "worldtpu/ops/extend_kernel.py:44",
-                        counts["wt_extend"], eerr, e_ms, e_plain))
+        # the steps actually run, each reading one candidate row and one
+        # score row of S floats and writing a value and a score; per walk
+        # its five arguments and two results
+        steps = int(n_on.sum())
+        S_ = wargs[0].shape[2]
+        e_bound = bound(steps * (2 * S_ * 4 + 8) + nbytes(*wargs[2:])
+                        + 16 * n_on.numel(), steps * 6 * S_)
+        results.append(dict(
+            name="extend", source="worldtpu_torch/csrc/extend.cu",
+            replaces="worldtpu/ops/extend_kernel.py:44",
+            launches=counts["wt_extend"],
+            launches_main=counts["wt_extend"], max_abs_err=eerr, ms=e_ms,
+            plain_ms=e_plain, bound=e_bound, library_ms=None))
 
         # the zc phase-1 entry, its own path: counts from 0
         groups = zc_kernel.make_groups(geo)
@@ -455,9 +553,15 @@ def main():
         log(f"zc split: events alone (phase 1, {len(groups)} launches) "
             f"{ze_ms:.3f} ms beside the full zc kernel {z_ms:.3f} ms  "
             f"[{card}]")
-        results.append(("zc_events", "worldtpu_torch/csrc/zc_events.cu",
-                        "worldtpu/ops/zc_kernel.py:349", ev_launches, zeerr,
-                        ze_ms, ze_plain))
+        ze_bound = bound(nbytes(filt) + sum(nbytes(ev, cc)
+                                            for ev, cc in evs),
+                         6 * filt.numel())
+        results.append(dict(
+            name="zc_events", source="worldtpu_torch/csrc/zc_events.cu",
+            replaces="worldtpu/ops/zc_kernel.py:349", launches=ev_launches,
+            launches_main=counts.get("wt_zc_events", 0),
+            max_abs_err=zeerr, ms=ze_ms, plain_ms=ze_plain, bound=ze_bound,
+            library_ms=None))
 
         # the contour chain and the main path with the plain walk (before
         # the extend kernel) and with the kernel, in turns in this process
@@ -489,8 +593,16 @@ def main():
         log(f"profiled wt.contour: plain walk host {hp:.3f} ms device "
             f"{dp:.3f} ms; extend kernel host {hk_:.3f} ms device "
             f"{dk_:.3f} ms  [{card}]")
+    log("library_ms null: no single PyTorch call computes the zc "
+        "candidates, the refine sums, the extend walk or the zc events from "
+        "their inputs")
     for r in results:
-        log(f"{r[0]}: kernel {r[5]:.3f} ms, plain {r[6]:.3f} ms  [{card}]")
+        b_ms, b_by = r["bound"]
+        log(f"{r['name']}: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+            f"{b_ms / r['ms']:.3f}, library "
+            f"{'-' if r['library_ms'] is None else round(r['library_ms'], 3)}"
+            f" ms  [{card}]")
 
     # ---- 5. port on the card vs port on the CPU, t22 fixture batch ----
     x22, fs22 = read_wav(root / "tests" / "fixtures" / "t22.wav")
@@ -540,6 +652,7 @@ def main():
     x_long = torch.cat([x[i, :int(n)] for i, n in enumerate(lengths)])
     hk_long = H.HarvestKernel(FS, x_long.shape[0], f0_floor=40.0, device=dev)
     _build.launches.clear()
+    zc_kernel.layout_launches.clear()
     torch.cuda.reset_peak_memory_stats()
     l_ms = []
     for _ in range(2):          # the first call at a new geometry is cold
@@ -552,10 +665,13 @@ def main():
         f"({hk_long.geo.f0_length} frames of 1 ms): first call "
         f"{l_ms[0]:.1f} ms, second {l_ms[1]:.1f} ms, peak device memory "
         f"{peak_gb:.2f} GiB, voiced {voiced_long:.3f}, launches "
-        f"{dict(_build.launches)}  [{card}]")
+        f"{dict(_build.launches)}, zc event layout "
+        f"{dict(zc_kernel.layout_launches)} (e_max {hk_long.geo.e_max})  "
+        f"[{card}]")
     if (f0_long.shape != (hk_long.get_samples(),)
             or not np.isfinite(f0_long).all() or voiced_long < 0.2
-            or _build.launches["wt_extend"] < 1):
+            or _build.launches["wt_extend"] < 1
+            or set(zc_kernel.layout_launches) != {"global"}):
         raise AssertionError("long-utterance Harvest on the card")
     _build.launches.clear()
 
@@ -587,14 +703,15 @@ def main():
                      ["copy-syn", fx, fused, "--fused", "--f0-scale",
                       "1.2"]):
             t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", "worldtpu_torch.cli",
-                                *args, "--device", "cuda"], cwd=root,
+            r = subprocess.run([sys.executable, "-c", CLI_NO_JAX, *args,
+                                "--device", "cuda"], cwd=root,
                                capture_output=True, text=True, timeout=300)
             if r.returncode != 0:
                 raise AssertionError(f"cli {args[0]} exited {r.returncode}:"
                                      f"\n{r.stdout[-2000:]}\n"
                                      f"{r.stderr[-2000:]}")
-            log(f"cli {args[0]}: rc 0 in {time.perf_counter() - t0:.1f} s")
+            log(f"cli {args[0]}: rc 0 in {time.perf_counter() - t0:.1f} s "
+                f"(jax and worldtpu blocked)")
         for ext in (".f0", ".spec", ".ap"):
             if not pathlib.Path(pre + ext).stat().st_size:
                 raise AssertionError(f"cli analyze wrote no {ext}")
@@ -611,10 +728,11 @@ def main():
     if jaxy:
         raise AssertionError(f"the smoke test imported {jaxy}")
 
-    kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
-                    launches=int(launched), max_abs_err=err, ms=ms,
-                    plain_ms=pms)
-               for n, src, rep, launched, err, ms, pms in results]
+    kernels = []
+    for r in results:
+        b_ms, b_by = r.pop("bound")
+        kernels.append(dict(r, route="cuda", bound_ms=b_ms, bound_by=b_by,
+                            share=b_ms / r["ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

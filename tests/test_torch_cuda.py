@@ -181,3 +181,95 @@ def test_world_copy_synthesis_launches_extend(dev):
     y, f0 = world.copy_synthesis(x, pitch_scale=1.1)
     assert _build.launches["wt_extend"] >= 1
     assert np.isfinite(y).all() and (f0 > 0).mean() > 0.3
+
+
+# ---------------------------------------------------------------------------
+# the redesigned refine and zc kernels, at their edges
+# ---------------------------------------------------------------------------
+
+def test_refine_kernel_edges(dev):
+    """Frames with 0 and 64 active slots, half windows at hwmax, bins at
+    n_fft/2, negative window offsets: within 1e-5 of the largest sum of
+    the plain version, and exact zeros at and past n_active."""
+    rng = np.random.RandomState(5)
+    hwmax, n_fft, cap = 276, 2048, TR.CAP
+    W = 2 * hwmax + 1
+    n_act = np.array([0, 64, 5, 64, 1, 37, 0, 12], np.int32)
+    N = len(n_act)
+    hw = rng.randint(14, hwmax + 1, (N, cap)).astype(np.int32)
+    hw[:, ::7] = hwmax
+    gbin = rng.randint(0, n_fft // 2 + 1, (N, cap, 6)).astype(np.int32)
+    gbin[:, ::5, -1] = n_fft // 2
+    args = [torch.tensor(a, device=dev) for a in (
+        rng.randn(N, W).astype(np.float32),
+        rng.uniform(-hwmax - 1.5, -hwmax - 0.5, N).astype(np.float32),
+        hw, gbin, n_act)]
+    kw = dict(hwmax=hwmax, n_fft=n_fft)
+    n0 = _build.launches["wt_refine_sums"]
+    k = TR.spectral_sums(*args, **kw)
+    assert _build.launches["wt_refine_sums"] == n0 + 1
+    p = TR.spectral_sums_plain(*args, **kw)
+    assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
+    off = torch.arange(cap, device=dev)[None, :] >= args[4][:, None]
+    assert bool((k[off] == 0).all())
+    assert bool((k[~off].abs().sum(-1) > 0).all())
+
+
+def _zc_rows(L):
+    """Band signal rows: silence (no events), one to three crossings of f,
+    a tone at a band's rate, a fast tone (many events), noise."""
+    rng = np.random.RandomState(9)
+    t = np.arange(L)
+    rows = [np.zeros(L)]
+    for n in (1, 2, 3):
+        r = np.ones(L)
+        for c in range(n):
+            r[(c + 1) * L // 4:] *= -1
+        rows.append(r)
+    rows.append(np.sin(2 * np.pi * t * 180.0 / 7350.0))
+    rows.append(np.sin(2 * np.pi * t / 4.0 + 0.3))
+    rows.append(rng.randn(L))
+    return np.stack(rows).astype(np.float32)[None]
+
+
+@pytest.mark.parametrize("L, e_max, layout", [
+    (20011, 600, "shared"),       # the fast tone's 5,000 events clamp
+    (20011, 300, "shared"),       # ... and the band tone's ~490 too
+    (20011, 14000, "global"),
+    (70003, 14000, "global"),     # ... and in the global layout
+])
+def test_zc_kernel_edges_exact(dev, L, e_max, layout):
+    """Bit-exact against the plain version (0 to 3 events of a type, more
+    than e_max, F not a multiple of the block) in both event layouts."""
+    filt = torch.tensor(_zc_rows(L), device=dev)
+    nb = filt.shape[1]
+    bounds = torch.full((nb,), 180.0, device=dev)
+    F = int(L / 7350.0 * 1000) + 1
+    assert F % 1024
+    args = dict(F=F, e_max=e_max, fs_a=7350.0, grid_hz=1000.0, tstep=0.001,
+                f0_floor=40.0, f0_ceil=800.0)
+    assert TZ.zc_layout(e_max) == layout
+    TZ.layout_launches.clear()
+    k = TZ.band_candidates_cuda(filt, bounds, **args)
+    assert dict(TZ.layout_launches) == {layout: 1}
+    p = TZ.band_candidates_plain(filt, bounds, **args)
+    assert torch.equal(k, p)
+    assert int((p[0, 4] > 0).sum()) > F // 2      # the tone's candidates
+
+
+@pytest.mark.parametrize("dur, layout", [(0.8, "shared"), (9.0, "global")])
+def test_zc_kernel_exact_on_speechlike(dev, dur, layout):
+    """A real geometry in each layout: 9 s pushes e_max past the shared
+    one.  Bit-exact against the plain version."""
+    fs = 22050
+    x = torch.tensor(_vowels(fs, 1, dur=dur), device=dev)
+    geo = TH.HarvestGeometry(fs, x.shape[1], f0_floor=40.0)
+    assert TZ.zc_layout(geo.e_max) == layout
+    y = TH.decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
+    filt = TH.band_filter(y, geo)
+    bounds = torch.as_tensor(geo.boundary_f0, dtype=torch.float32,
+                             device=dev)
+    args = TZ.geometry_args(geo)
+    k = TZ.band_candidates_cuda(filt, bounds, **args)
+    p = TZ.band_candidates_plain(filt, bounds, **args)
+    assert torch.equal(k, p) and int((p > 0).sum()) > 0

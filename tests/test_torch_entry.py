@@ -249,12 +249,17 @@ def test_cli_roundtrip_and_fused(tmp_path):
 
 
 def test_entry_points_import_without_jax():
+    """The entry points and the port's own copies of the numpy-only
+    modules import with JAX and ``worldtpu`` blocked."""
     r = _run(None, code=(
         "import sys; sys.modules['jax'] = None\n"
+        "sys.modules['worldtpu'] = None\n"
         "import worldtpu_torch, worldtpu_torch.api, worldtpu_torch.cli\n"
         "from worldtpu_torch import World, Harvest\n"
-        "from worldtpu_torch.analysis import harvest\n"
-        "from worldtpu.analysis import contour\n"
-        "print(sorted(m for m in sys.modules if m.startswith('jax')))"))
+        "from worldtpu_torch.analysis import contour, harvest\n"
+        "from worldtpu_torch.io import params, wav\n"
+        "from worldtpu_torch.metrics import MetricsRecorder\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.startswith(('jax', 'worldtpu.'))))"))
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "['jax']"

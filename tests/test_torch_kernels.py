@@ -302,3 +302,36 @@ def test_zc_events_cuda_checks_inputs():
     with pytest.raises(ValueError, match="CUDA tensor"):
         TZ.zc_events_cuda(torch.zeros((1, 4, 300)), 0, 2, e_cap=128,
                           c_row=8)
+
+
+def test_zc_layout_by_e_max():
+    """wt_zc keeps a row's events in shared memory up to the byte limit,
+    past it in a device scratch; chip_smoke.py's B=8 geometry (e_max
+    7,125) takes the shared layout, its 24.33 s utterance the global."""
+    lim = TZ.ZC_SHARED_EVENT_BYTES // 16
+    assert TZ.zc_layout(lim) == "shared"
+    assert TZ.zc_layout(lim + 1) == "global"
+    assert TZ.zc_layout(TH.HarvestGeometry(22050, 98304, 40.0).e_max) \
+        == "shared"
+    assert TZ.zc_layout(TH.HarvestGeometry(22050, 536400, 40.0).e_max) \
+        == "global"
+
+
+@pytest.mark.parametrize("n_fft, W, match", [
+    (2000, 553, "power of two"),
+    (2 ** 22, 1025, "2\\*\\*31"),
+    (2 ** 15, 553, "shared memory"),
+])
+def test_refine_geometry_checks(n_fft, W, match):
+    """The refine kernel's int32 phase reduction and its shared twiddle
+    table hold only for power-of-two n_fft with (n_fft/2)*W < 2**31 and a
+    table that fits: the wrapper raises before it touches the tensors."""
+    TR.check_refine_geometry(2048, 553)
+    with pytest.raises(ValueError, match=match):
+        TR.check_refine_geometry(n_fft, W)
+    seg = torch.zeros((2, W))
+    with pytest.raises(ValueError, match=match):
+        TR.spectral_sums_cuda(seg, torch.zeros(2), torch.zeros(
+            (2, TR.CAP), dtype=torch.int32), torch.zeros(
+            (2, TR.CAP, 6), dtype=torch.int32), torch.zeros(
+            2, dtype=torch.int32), hwmax=(W - 1) // 2, n_fft=n_fft)

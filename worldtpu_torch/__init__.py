@@ -4,7 +4,8 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of the JAX package ``worldtpu`` (which stays the reference): B padded
 wavs -> Harvest F0 (with the on-device contour chain) -> pitch scale ->
 CheapTrick + D4C -> pulse/noise synthesis -> B wavs, as
-``worldtpu_torch.parallel.batch.batch_wav_to_wav``.  The user entry points
+``worldtpu_torch.parallel.batch.batch_wav_to_wav``.  Files and metrics
+go through ``io`` and ``metrics``.  The user entry points
 mirror ``worldtpu``'s: the facades of ``api`` (exported here: Harvest,
 CheapTrick, D4C, Synthesis, World and their options), ``HarvestKernel``,
 and the CLI ``python -m worldtpu_torch.cli``.
@@ -18,10 +19,10 @@ launches the kernel or raises.
 
 Importing the package sets float32 matmuls and cuDNN convolutions to full
 f32 (no TF32): the reference is true f32, and TF32 keeps ~3 digits.
-The package never imports JAX.  The CLI and the host contour branch of
-``HarvestKernel`` read the numpy-only ``worldtpu.io``, ``worldtpu.metrics``
-and ``worldtpu.analysis.contour`` (``worldtpu/__init__.py`` imports
-nothing).
+The package imports neither JAX nor anything of ``worldtpu``: it keeps its
+own copies of the numpy-only modules it needs (``io.wav``, ``io.params``,
+``metrics``, ``analysis.contour``), held equal to ``worldtpu``'s by the
+tests.
 """
 
 import torch

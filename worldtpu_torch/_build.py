@@ -10,6 +10,9 @@ module without a CUDA toolkit.
 
 Every kernel wrapper counts its launches in ``launches`` (a Counter keyed
 by kernel name), so a caller can show that a run went through the kernels.
+The compiler's ``-Xptxas -v`` report of each source (registers, shared
+memory, spills per kernel) is saved beside the library and loaded into
+``ptxas_report``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import collections
 import concurrent.futures
 import ctypes
 import hashlib
+import json
 import os
 import pathlib
 import shutil
@@ -30,29 +34,38 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "worldtpu_torch"
 
-#: fmad=false keeps every float product and sum separately rounded, as the
-#: CPU reference computes them: the zc kernel's frame assignment and the
-#: refine windows end in integer or threshold decisions where a fused
-#: multiply-add could flip a knife edge against the plain version.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+
+#: multiply-add contraction by source (stem -> --fmad value; the rest
+#: false).  fmad=false keeps every float product and sum separately
+#: rounded, as the plain versions compute them: zc's frame assignment
+#: (a ceil) and band gates, zc events' positions and extend's error
+#: comparisons are held to their plain versions exactly, and a fused
+#: multiply-add there could flip a knife edge.  refine is held to a
+#: tolerance (1e-5 of the largest sum), and contraction halves the
+#: instructions of its 24 accumulations.  ola's sums are plain adds.
+FMAD = {"refine": "true"}
 
 #: kernel name -> launches since the last clear()
 launches: collections.Counter = collections.Counter()
 
 _lib = None
 build_seconds = None
+#: source stem -> nvcc's -Xptxas -v report of the loaded library's build
+ptxas_report: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # filt, bounds, ev, out, n_rows, nb, L, F, e_max, fs_a, grid_hz,
-    # tstep, f0_floor, f0_ceil, stream
-    "wt_zc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
-    # seg, delta, hw, gbin, n_active, twiddle, out, n_frames, cap, wseg,
-    # hwmax, n_fft, stream
-    "wt_refine_sums": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # tstep, f0_floor, f0_ceil, shared_events, stream
+    "wt_zc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I,
+              _P),
+    # seg, delta, hw, gbin, n_active, offs, twiddle, out, n_frames, cap,
+    # wseg, hwmax, n_fft, stream
+    "wt_refine_sums": (_P,) * 8 + (_I,) * 5 + (_P,),
     # resp, starts, out, B, P, fft, T, stream
     "wt_ola": (_P, _P, _P, _I, _I, _I, _I, _P),
     # cand, score, origin, shift, live, distance, tmp0, vals, scs, n_on, so,
@@ -80,10 +93,17 @@ def _run(cmd):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def compile_flags(src):
+    """nvcc's flags for one source: the common ones and its --fmad."""
+    return (*NVCC_FLAGS, f"--fmad={FMAD.get(src.stem, 'false')}")
 
 
 def _source_hash(sources):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(FMAD.items())).encode())
     for s in sources:
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -105,15 +125,22 @@ def library():
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             objs = [f"{tmp}/{src.stem}.o" for src in sources]
             with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
-                list(ex.map(_run, ([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                                    str(src)]
-                                   for src, obj in zip(sources, objs))))
+                logs = list(ex.map(_run, ([nvcc, *compile_flags(src),
+                                           "-Xptxas", "-v", "-c", "-o", obj,
+                                           str(src)]
+                                          for src, obj in zip(sources,
+                                                              objs))))
+            (out_dir / "ptxas.json").write_text(json.dumps(
+                {src.stem: log for src, log in zip(sources, logs)}))
             _run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", f"{tmp}/lib.so",
                   *objs])
             os.replace(f"{tmp}/lib.so", so)
         build_seconds = time.perf_counter() - t0
     else:
         build_seconds = 0.0
+    report = out_dir / "ptxas.json"
+    if report.exists():
+        ptxas_report.update(json.loads(report.read_text()))
     lib = ctypes.CDLL(str(so))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -375,7 +375,7 @@ class HarvestKernel(torch.nn.Module):
     ``compute_batch`` mirror ``worldtpu.analysis.harvest.HarvestKernel``
     and return numpy.  Input on the card always takes the device contour
     chain.  CPU input longer than HOST_CONTOUR_FRAMES frames of the 1 ms
-    grid takes the numpy float64 chain (``worldtpu.analysis.contour``)
+    grid takes the numpy float64 chain (``analysis.contour``)
     instead, since the dense chain's section layout grows as F^2."""
 
     def __init__(self, fs, x_length, f0_floor=C.FLOOR_F0, f0_ceil=C.CEIL_F0,
@@ -406,7 +406,7 @@ class HarvestKernel(torch.nn.Module):
     def _finish(self, cand, score):
         """Host contour of one utterance's [F, S] candidates/scores
         (float64 numpy) -> (f0 [n_out], tpos [n_out])."""
-        from worldtpu.analysis import contour
+        from worldtpu_torch.analysis import contour
         best = contour.fix_f0_contour(cand, score)
         f0_grid = contour.smooth_f0_contour(best)
         tpos = self._tpos()

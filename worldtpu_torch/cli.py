@@ -13,8 +13,9 @@ wav, with byte-compatible parameter files), with ``--device`` in place of
 is present rather than running on the CPU; ``--device cpu`` runs the plain
 PyTorch versions of the kernels.  Only the float32 path is ported: without
 ``--f32`` (or ``--fused``, which implies it) the CLI raises
-NotImplementedError.  Files go through the numpy-only ``worldtpu.io.wav``,
-``worldtpu.io.params`` and ``worldtpu.metrics``, which import no JAX.
+NotImplementedError.  Files go through the port's numpy-only ``io.wav`` and
+``io.params`` (byte-compatible with ``worldtpu``'s), metrics through its
+``metrics.MetricsRecorder``.
 """
 
 from __future__ import annotations
@@ -118,8 +119,8 @@ def _synthesize(run, f0, spec, ap, fs, fft_size, frame_period, dtype,
 
 def _run_fused(run, args, x, fs, profile_region):
     """--fused: analysis (and copy-syn resynthesis) through api.World."""
-    from worldtpu.io import params, wav
     from worldtpu_torch import api
+    from worldtpu_torch.io import params, wav
 
     world = api.World(fs, frame_period=args.frame_period,
                       f0_floor=args.f0_floor, device=run.device)
@@ -197,11 +198,11 @@ def main(argv=None):
         raise NotImplementedError(F64_NOT_PORTED)
     dtype = torch.float32
 
-    from worldtpu.io import params, wav
+    from worldtpu_torch.io import params, wav
 
     metrics = None
     if args.metrics_json:
-        from worldtpu.metrics import MetricsRecorder
+        from worldtpu_torch.metrics import MetricsRecorder
         metrics = MetricsRecorder()
     run = _Run(device, metrics)
 

@@ -13,6 +13,7 @@ frame row, zero-padded to S), as on the TPU.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -148,9 +149,10 @@ def finish(sums, prep, *, geo):
     return refined[..., :S], score[..., :S]
 
 
+@functools.lru_cache(maxsize=8)
 def _twiddles(n_fft, device):
     """[2, n_fft] cos/sin of 2*pi*k/n_fft in f32 (the exactly reduced
-    phases of the refine DFT)."""
+    phases of the refine DFT), made once per size and device."""
     a = (2.0 * C.PI / n_fft) * torch.arange(n_fft, dtype=torch.float32,
                                             device=device)
     return torch.stack([torch.cos(a), torch.sin(a)]).contiguous()
@@ -223,10 +225,30 @@ def _plain_chunk(seg, delta, hw, gbin, n_active, hwmax, n_fft, tw):
     return torch.cat([torch.stack(p, -1) for p in parts], -1)
 
 
+#: shared memory the kernel may give its twiddle table (8 * n_fft bytes):
+#: the H100's 227 KB per block
+_TWIDDLE_BYTES = 227 * 1024
+
+
+def check_refine_geometry(n_fft, W):
+    """Raise ValueError unless the kernel's int32 phase reduction
+    (g * m) & (n_fft - 1) is exact and its twiddle table fits: n_fft a
+    power of two, (n_fft / 2) * W < 2**31 (bins g <= n_fft / 2, samples
+    m < W), 8 * n_fft bytes of shared memory."""
+    if n_fft < 2 or n_fft & (n_fft - 1):
+        raise ValueError(f"n_fft {n_fft} is not a power of two")
+    if (n_fft // 2) * W >= 2 ** 31:
+        raise ValueError(f"(n_fft/2) * W = {(n_fft // 2) * W} >= 2**31")
+    if 8 * n_fft > _TWIDDLE_BYTES:
+        raise ValueError(f"n_fft {n_fft}: twiddle table above "
+                         f"{_TWIDDLE_BYTES} bytes of shared memory")
+
+
 def spectral_sums_cuda(seg, delta, hw, gbin, n_active, *, hwmax, n_fft):
-    """Launch ``wt_refine_sums``: one block per frame, one warp per active
-    candidate."""
+    """Launch ``wt_refine_sums``: warps over the flat list of active
+    (frame, slot) pairs, located through the device cumsum of n_active."""
     N, W = seg.shape
+    check_refine_geometry(n_fft, W)
     _build.check_tensor(seg, "seg", torch.float32)
     if W < 2 * hwmax + 1:
         raise ValueError(f"seg width {W} < 2*hwmax+1 = {2 * hwmax + 1}")
@@ -237,8 +259,10 @@ def spectral_sums_cuda(seg, delta, hw, gbin, n_active, *, hwmax, n_fft):
     _build.check_tensor(gbin, "gbin", torch.int32, (N, cap, 6), dev)
     _build.check_tensor(n_active, "n_active", torch.int32, (N,), dev)
     tw = _twiddles(n_fft, dev)
+    offs = torch.cumsum(n_active, 0, dtype=torch.int32)
     out = torch.empty((N, cap, 24), dtype=torch.float32, device=dev)
     _build.launch("wt_refine_sums", dev, seg.data_ptr(), delta.data_ptr(),
                   hw.data_ptr(), gbin.data_ptr(), n_active.data_ptr(),
-                  tw.data_ptr(), out.data_ptr(), N, cap, W, hwmax, n_fft)
+                  offs.data_ptr(), tw.data_ptr(), out.data_ptr(), N, cap, W,
+                  hwmax, n_fft)
     return out

@@ -15,6 +15,7 @@ reads a non-event scratch value past the last slot; here that slot reads
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 
@@ -28,6 +29,23 @@ from worldtpu_torch.ops.numeric import device_kind
 #: rows of the [B*nb, L] signal processed together by the plain version
 #: (bounds its int64 rank/cumsum temporaries)
 _PLAIN_ROWS = 64
+
+#: shared memory that ``wt_zc`` may give a row's events (4 * e_max floats):
+#: the H100's 227 KB per block less the kernel's scan buffers and per-warp
+#: event lists (72.5 KB), rounded down; a larger e_max takes the "global"
+#: layout
+ZC_SHARED_EVENT_BYTES = 150 * 1024
+
+#: launches of ``wt_zc`` by event layout ("shared" / "global") since the
+#: last clear()
+layout_launches: collections.Counter = collections.Counter()
+
+
+def zc_layout(e_max):
+    """``wt_zc``'s event layout for a geometry's e_max: "shared" when the
+    four types' events of a row fit in ZC_SHARED_EVENT_BYTES, else
+    "global" (a scratch [rows, 4, e_max] in device memory)."""
+    return "shared" if 16 * e_max <= ZC_SHARED_EVENT_BYTES else "global"
 
 
 def band_candidates(filt, geo):
@@ -131,17 +149,23 @@ def _plain_rows(f, bnd, F, e_max, fs_a, grid_hz, tstep, f0_floor, f0_ceil):
 
 def band_candidates_cuda(filt, bounds, *, F, e_max, fs_a, grid_hz, tstep,
                          f0_floor, f0_ceil):
-    """Launch ``wt_zc``: one block per (utterance, band)."""
+    """Launch ``wt_zc``: one block per (utterance, band), its events in
+    shared memory or in a device scratch by ``zc_layout(e_max)``."""
     B, nb, L = filt.shape
     _build.check_tensor(filt, "filt", torch.float32)
     _build.check_tensor(bounds, "bounds", torch.float32, (nb,), filt.device)
+    if e_max < 1 or L < 2:
+        raise ValueError(f"e_max {e_max} and L {L}: need e_max >= 1, L >= 2")
     n_rows = B * nb
-    ev = torch.empty((n_rows, 4, e_max), dtype=torch.float32,
-                     device=filt.device)
+    layout = zc_layout(e_max)
+    shared = layout == "shared"
+    ev = torch.empty((0,) if shared else (n_rows, 4, e_max),
+                     dtype=torch.float32, device=filt.device)
     out = torch.empty((B, nb, F), dtype=torch.float32, device=filt.device)
     _build.launch("wt_zc", filt.device, filt.data_ptr(), bounds.data_ptr(),
                   ev.data_ptr(), out.data_ptr(), n_rows, nb, L, F, e_max,
-                  fs_a, grid_hz, tstep, f0_floor, f0_ceil)
+                  fs_a, grid_hz, tstep, f0_floor, f0_ceil, int(shared))
+    layout_launches[layout] += 1
     return out
 
 

@@ -328,7 +328,7 @@ def main():
     busy = sum(a[1] for a in acts)
     log(f"profiled main path: wall {p_wall:.1f} ms (profiler on), device "
         f"busy {busy:.1f} ms = {100 * busy / p_wall:.1f}% of that wall, "
-        f"{len(acts)} device activities (PR 2's run: busy 35.1 ms)  [{card}]")
+        f"{len(acts)} device activities  [{card}]")
     for nm, (h_ms, d_ms) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
         log(f"  stage {nm:18s} host {h_ms:8.3f} ms  device {d_ms:8.3f} ms")
     d_sum = sum(v[1] for v in stages.values())

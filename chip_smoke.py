@@ -405,15 +405,26 @@ def main():
         r_plain = median_ms(torch, lambda: refine_kernel.spectral_sums_plain(
             *rk_args, **rkw), 3)
         # useful work: 24 multiply-adds per window sample of each active
-        # (frame, slot) pair
-        seg_, _, hw_, _, na_ = rk_args
+        # (frame, slot) pair.  The bytes it needs: the dense output and
+        # n_active; of a frame with an active pair, its delta and the span
+        # of its widest window in the segment; of an active pair, its half
+        # window and six bins (inactive slots and frames are never read)
+        _, _, hw_, _, na_ = rk_args
         act = (torch.arange(hw_.shape[1], device=dev)[None, :]
                < na_[:, None])
-        samples = int(((2 * hw_.clamp(max=geo.max_half_window) + 1)
-                       * act).sum())
-        r_bound = bound(nbytes(*rk_args, rk), 48 * samples)
-        log(f"refine: {int(na_.sum())} active pairs of {act.numel()}, "
-            f"{samples} window samples, {48 * samples / 1e9:.3f} GFLOP")
+        hwc = hw_.clamp(max=geo.max_half_window)
+        samples = int(((2 * hwc + 1) * act).sum())
+        pairs = int(act.sum())
+        live = int((na_ > 0).sum())
+        span = int((2 * torch.where(act, hwc, -1).amax(1) + 1)
+                   .clamp(min=0).sum())
+        r_bytes = nbytes(rk, na_) + 4 * (span + live + 7 * pairs)
+        r_bound = bound(r_bytes, 48 * samples)
+        log(f"refine: {pairs} active pairs of {act.numel()} in {live} "
+            f"frames, {samples} window samples, {48 * samples / 1e9:.3f} "
+            f"GFLOP; bytes needed {r_bytes / 1e6:.1f} MB (output "
+            f"{nbytes(rk) / 1e6:.1f}, window spans {4 * span / 1e6:.1f}, "
+            f"active-pair tables {28 * pairs / 1e6:.1f})")
         results.append(dict(
             name="refine", source="worldtpu_torch/csrc/refine.cu",
             replaces="worldtpu/ops/refine_kernel.py:49",

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's numpy-only modules against the
-originals: WAV and parameter files byte for byte, the host F0 contour bit
-for bit, the metrics JSON; and the CLI and the host contour branch of
+originals: WAV and parameter files byte for byte, the host F0 contour and
+its C smoothing helper bit for bit, the metrics JSON; and the CLI and the host contour branch of
 HarvestKernel in a process where JAX and ``worldtpu`` cannot be imported."""
 
 import gzip
@@ -17,10 +17,12 @@ import pytest
 import torch
 
 from worldtpu import metrics as jmetrics
+from worldtpu import native as jnative
 from worldtpu.analysis import contour as jcontour
 from worldtpu.io import params as jparams
 from worldtpu.io import wav as jwav
 from worldtpu_torch import metrics as tmetrics
+from worldtpu_torch import native as tnative
 from worldtpu_torch.analysis import contour as tcontour
 from worldtpu_torch.analysis import harvest as TH
 from worldtpu_torch.io import params as tparams
@@ -201,6 +203,22 @@ def test_contour_equal_t22_candidates():
     assert (best > 0).mean() > 0.3
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_filter_f0_helper_equals_python_loop(seed):
+    """The port's C smoothing helper gives the bits of the module's Python
+    loop and of the original C helper, on a padded voiced section."""
+    rng = np.random.RandomState(seed)
+    x = np.zeros(3000)
+    x[300:2700] = 150 + 30 * np.sin(np.arange(2400) / 97.0) \
+        + rng.randn(2400)
+    b, a = tcontour._SMOOTH_B, tcontour._SMOOTH_A
+    out = tnative.filter_f0(x, b, a)
+    assert out is not None, "the C helper did not build"
+    np.testing.assert_array_equal(
+        out, tcontour._biquad_pass(tcontour._biquad_pass(x)))
+    np.testing.assert_array_equal(out, jnative.filter_f0(x, b, a))
+
+
 def test_metrics_json_equal(tmp_path):
     """MetricsRecorder emits the same JSON document."""
     docs = []
@@ -238,6 +256,8 @@ def test_cli_and_host_contour_without_worldtpu(tmp_path):
         "TH.HOST_CONTOUR_FRAMES = 0\n"
         "hk = TH.HarvestKernel(fs, len(x), f0_floor=40.0, device='cpu')\n"
         "f0, tpos = hk.compute_batch(np.stack([x, 0.6 * x]))[0]\n"
+        "from worldtpu_torch import native\n"
+        "assert native._LIB is not None  # smoothed by the port's helper\n"
         f"np.save({pre + '_hk.npy'!r}, f0)\n"
         f"sys.argv = ['cli', 'analyze', {str(FIXTURES / 't22.wav')!r}, "
         f"{pre!r}, '--f32', '--device', 'cpu', '--metrics-json', "

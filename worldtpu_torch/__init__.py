@@ -21,7 +21,8 @@ Importing the package sets float32 matmuls and cuDNN convolutions to full
 f32 (no TF32): the reference is true f32, and TF32 keeps ~3 digits.
 The package imports neither JAX nor anything of ``worldtpu``: it keeps its
 own copies of the numpy-only modules it needs (``io.wav``, ``io.params``,
-``metrics``, ``analysis.contour``), held equal to ``worldtpu``'s by the
+``metrics``, ``analysis.contour``) and of the contour's C smoothing helper
+(``native``, ``csrc/filter_f0.c``), held equal to ``worldtpu``'s by the
 tests.
 """
 

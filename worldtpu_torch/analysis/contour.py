@@ -1,8 +1,9 @@
 """Harvest F0-contour fixing and smoothing (host-side numpy, float64).
 
-The port's own copy of ``worldtpu/analysis/contour.py`` (numpy only, the
-same operations in the same order; ``tests/test_torch_io.py`` holds the two
-equal bit for bit).  ``HarvestKernel.compute_batch`` runs it on CPU input
+The port's own copy of ``worldtpu/analysis/contour.py`` (numpy, and the
+smoothing recurrence in the port's C helper ``worldtpu_torch.native`` as in
+the original's; the same operations in the same order;
+``tests/test_torch_io.py`` holds the two equal bit for bit).  ``HarvestKernel.compute_batch`` runs it on CPU input
 past ``HOST_CONTOUR_FRAMES``; the card runs ``contour_device`` instead.
 
 Reference: fixF0Contour + smoothF0Contour (src/harvest.cpp:254-703).
@@ -16,6 +17,8 @@ All magic constants follow the reference: fixStep params 0.008/6/0.18/9
 from __future__ import annotations
 
 import numpy as np
+
+from worldtpu_torch import native
 
 
 def search_f0_base(candidates, scores):
@@ -244,30 +247,33 @@ _SMOOTH_B = (0.0078202080334971724, 0.015640416066994345)
 _SMOOTH_A = (1.7347257688092754, -0.76600660094326412)
 
 
+def _biquad_pass(sig):
+    """One forward biquad pass writing its output time-reversed."""
+    a, b = _SMOOTH_A, _SMOOTH_B
+    w0 = w1 = 0.0
+    out = np.empty_like(sig)
+    n = len(sig)
+    for i in range(n):
+        wt = sig[i] + a[0] * w0 + a[1] * w1
+        out[n - i - 1] = b[0] * wt + b[1] * w0 + b[0] * w1
+        w1 = w0
+        w0 = wt
+    return out
+
+
 def _filtering_f0(x, st, ed):
     """Zero-lag biquad with edge-hold (reference filteringF0 :639-665).
 
-    The recurrence is inherently sequential.  ``worldtpu`` runs it in a C
-    helper built at first use, with this loop's operation order; the port
-    keeps the Python loop (Python floats are IEEE doubles, so the result is
-    the same bit for bit) and builds no host code."""
-    a, b = _SMOOTH_A, _SMOOTH_B
+    The recurrence is inherently sequential; the port's C helper
+    (``worldtpu_torch.native``) runs it with the same operation order, and
+    this module's Python loop where the helper cannot be built."""
     x = x.copy()
     x[:st] = x[st]
     x[ed + 1:] = x[ed]
-
-    def one_pass(sig):
-        w0 = w1 = 0.0
-        out = np.empty_like(sig)
-        n = len(sig)
-        for i in range(n):
-            wt = sig[i] + a[0] * w0 + a[1] * w1
-            out[n - i - 1] = b[0] * wt + b[1] * w0 + b[0] * w1
-            w1 = w0
-            w0 = wt
+    out = native.filter_f0(x, _SMOOTH_B, _SMOOTH_A)
+    if out is not None:
         return out
-
-    return one_pass(one_pass(x))
+    return _biquad_pass(_biquad_pass(x))
 
 
 def smooth_f0_contour(f0):

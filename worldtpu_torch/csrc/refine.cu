@@ -16,15 +16,15 @@
 // Output [frames, cap, 24]: index c*6 + h for c in (main re, main im,
 // diff re, diff im); slots at or beyond n_active are zero.
 //
-// What bounds it on the H100: the bytes, the segments read once and the
-// [frames, 64, 24] output written once (362 MB at chip_smoke.py's shapes,
-// mostly zeros): 0.11 ms at 3.35 TB/s; the useful work, 48 flops per window
-// sample of each active candidate (3.2 GFLOP there), is 0.05 ms at 67
-// TFLOP/s.  This design is ~8x slower than that bound (PERF.md;
-// kernel_variants.py splits its time into the per-pair work outside the
-// window loop and the loop), both parts far below the card's issue rate:
-// each warp is a chain of dependent steps that 24 warps per SM do not
-// hide.  The design:
+// What bounds it on the H100: the bytes.  The [frames, 64, 24] output is
+// written once (219 MB at chip_smoke.py's shapes, mostly zeros); of the
+// inputs only what active (frame, slot) pairs touch is read: the window
+// span of each frame with a pair and the pairs' half windows and bins
+// (267 MB in all there): 0.080 ms at 3.35 TB/s.  The useful work, 48
+// flops per window sample of each active candidate (3.2 GFLOP there), is
+// 0.05 ms at 67 TFLOP/s.  This design is ~11-13x slower than that bound
+// (PERF.md), far below the card's issue rate too: each warp is a chain of
+// dependent steps that 24 warps per SM do not hide.  The design:
 //   - the harmonic phase is reduced in int32, (g*m) & (N-1) (N a power of
 //     two, g*m < 2^31, checked by the wrapper), not a 64-bit remainder;
 //   - the file is built with multiply-add contraction (_build.py), so each
@@ -215,6 +215,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The grid per device: the blocks the card holds at once for a twiddle
+// table of `smem` bytes (smem 0: not worked out yet).  Worked out on the
+// first call and again only when n_fft changes, so a call does no host
+// queries beyond cudaGetDevice.
+struct LaunchShape {
+  int smem;
+  int blocks;
+};
+constexpr int kMaxDevices = 64;
+LaunchShape g_shape[kMaxDevices];
+
 }  // namespace
 
 extern "C" int wt_refine_sums(const float* seg, const float* delta,
@@ -224,22 +235,28 @@ extern "C" int wt_refine_sums(const float* seg, const float* delta,
                               int cap, int wseg, int hwmax, int n_fft,
                               void* stream) {
   if (n_frames <= 0) return 0;
-  int dev = 0, sms = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int smem = n_fft * (int)sizeof(float2);
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(refine_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  int per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, refine_kernel,
-                                                        kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = sms * (per_sm > 0 ? per_sm : 1);
-  refine_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int smem = n_fft * (int)sizeof(float2);
+  LaunchShape once = {0, 0};
+  LaunchShape& shape = dev < kMaxDevices ? g_shape[dev] : once;
+  if (shape.smem != smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess && smem > 48 * 1024)
+      err = cudaFuncSetAttribute(refine_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, refine_kernel, kThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    shape.blocks = sms * (per_sm > 0 ? per_sm : 1);
+    shape.smem = smem;
+  }
+  refine_kernel<<<shape.blocks, kThreads, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
       seg, delta, hw, gbin, n_active, offs, twiddle, out, n_frames, cap, wseg,
       hwmax, n_fft);
   return static_cast<int>(cudaGetLastError());

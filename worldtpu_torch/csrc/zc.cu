@@ -24,8 +24,8 @@
 // compares; what cost time in the first design were four passes over each
 // row (one per type) with two barriers per 512 samples, events in a 169 MB
 // global scratch, and a binary search of global memory per frame and type.
-// This design is ~9x slower than that bound (PERF.md; kernel_variants.py
-// splits its time): its events and lists leave room for one block per SM,
+// This design is ~9x slower than that bound (PERF.md): its events and
+// lists leave room for one block per SM,
 // so nothing overlaps a block's barriers and dependent chains, and the
 // frame merge's lanes branch apart.
 // This design, one 1024-thread block per (utterance, band):
@@ -336,6 +336,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The dynamic shared memory each layout's kernel is allowed, per device
+// (0: not set yet): raised on the first call and again only when a
+// geometry needs more, so a call does no other host query than
+// cudaGetDevice.
+constexpr int kMaxDevices = 64;
+int g_smem_allowed[2][kMaxDevices];
+
 }  // namespace
 
 // shared_events != 0: the events of a row in shared memory (4 * e_max
@@ -349,10 +356,19 @@ extern "C" int wt_zc(const float* filt, const float* bounds, float* ev,
   const int lists = kWarps * kListCap * (int)sizeof(int);
   const int smem = lists + (shared_events ? 4 * e_max * (int)sizeof(float)
                                           : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      shared_events ? zc_kernel<true> : zc_kernel<false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  int once = 0;
+  int& allowed =
+      dev < kMaxDevices ? g_smem_allowed[shared_events ? 1 : 0][dev] : once;
+  if (smem > allowed) {
+    err = cudaFuncSetAttribute(
+        shared_events ? zc_kernel<true> : zc_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
+  }
   if (shared_events)
     zc_kernel<true><<<n_rows, kThreads, smem, st>>>(
         filt, bounds, ev, out, nb, L, F, e_max, fs_a, grid_hz, tstep,

@@ -2,6 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (worldtpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
+    python3 chip_smoke.py --baseline DIR
+        # also times the OLA and extend kernels of DIR/ola.cu and
+        # DIR/extend.cu (the designs the current ones replaced: wt_ola
+        # without the pulse count) against the current ones, in turns
 
 Phases (any failure raises, so the exit code is not 0):
   1. environment: python/torch/CUDA versions and the card's name and power
@@ -21,14 +25,24 @@ Phases (any failure raises, so the exit code is not 0):
      main path, each stage's host and device time (the ``wt.*`` ranges)
      and the device's busy share of that run's wall;
   4. per kernel, at the main path's shapes: kernel against its plain
-     PyTorch version on the card (stated tolerances), median times of both
-     from CUDA events, the kernel's bound (the larger of its bytes over
+     PyTorch version on the card (stated tolerances); the kernel's device
+     time alone (``device_ms``: the wrapper's launches captured once, with
+     their arguments and outputs allocated once, then issued again through
+     the C entries N times back to back between two CUDA events, queued
+     behind a sleep kernel so the device never waits for the host inside
+     the window, divided by N), its wrapper-inclusive time (median of CUDA
+     events around single wrapper calls, as measured before) and the
+     plain version's; the kernel's bound (the larger of its bytes over
      3.35 TB/s and its operations over 67 TFLOP/s, counted from this run's
      inputs) and, for OLA, the one PyTorch call that computes the same sums
-     (index_add_); the zc phase-1 entry (zc_kernel.zc_events, the zc
-     events kernel's path, driven with the counts set to 0) and the zc
-     split (events ms beside full zc ms); the contour chain with the extend
-     kernel against the same chain with the plain walk, in turns;
+     (index_add_, device time alone); OLA's real and padding pulses,
+     extend's longest walk and device time per step of it (the chain's
+     floor); the zc phase-1 entry (zc_kernel.zc_events, the zc events
+     kernel's path, driven with the counts set to 0) and the zc split
+     (events ms beside full zc ms); with --baseline, the earlier OLA and
+     extend designs against the current ones (old, new, new, old); the
+     contour chain with the extend kernel against the same chain with the
+     plain walk, in turns;
   5. the port on the card against the port on the CPU (plain versions) on
      the tests/fixtures/t22.wav batch: F0 and short-time RMS envelope;
   6. the user entry points on the card: HarvestKernel.compute_batch with
@@ -43,14 +57,17 @@ Phases (any failure raises, so the exit code is not 0):
 The line before the last is a JSON object {"kernels": [...]}: for each
 kernel its launches in the main path's run (``launches_main``; zc_events,
 off the main path, counts ``launches`` in its own path's run), its largest
-difference from its plain version, its time, its plain version's, its
-bound and what bounds it, the share bound/time, and the library call's
-time (null where no single PyTorch call computes the function).  The last
+difference from its plain version, its device time alone (``ms``), its
+wrapper-inclusive time (``call_ms``), its plain version's, its bound and
+what bounds it, the share bound/ms, and the library call's device time
+(null where no single PyTorch call computes the function).  The last
 line is {"ok": true, "device": {...}}.  Without a CUDA device, or outside
 the repository, the script exits non-zero and prints no result.
 """
 
+import argparse
 import collections
+import ctypes
 import json
 import pathlib
 import statistics
@@ -78,6 +95,12 @@ OLA_ATOL, OLA_RTOL = 1e-5, 1e-4
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 
+
+# the C entries of the designs the current OLA and extend kernels replaced
+# (--baseline): wt_ola without the pulse count, wt_extend as now
+_CP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+OLD_ENTRIES = {"wt_ola": (_CP,) * 3 + (_CI,) * 4 + (_CP,),
+               "wt_extend": (_CP,) * 11 + (_CI,) * 6 + (_CF, _CP)}
 
 # runs the CLI (its arguments follow -c) where jax and worldtpu cannot be
 # imported, so any import of either by the port fails the command
@@ -112,6 +135,90 @@ def median_ms(torch, fn, reps):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def capture(_build, fn):
+    """(fn(), the kernel launches fn made: [(C entry, device, args)]), the
+    arguments' tensors kept alive with them."""
+    seen = []
+    real = _build.launch
+
+    def spy(name, device, *args):
+        seen.append((name, device, args))
+        return real(name, device, *args)
+
+    _build.launch = spy
+    try:
+        out = fn()
+    finally:
+        _build.launch = real
+    return out, seen
+
+
+def replayer(torch, _build, lib, seen, adapt=None):
+    """A function that issues the captured launches again through ``lib``'s
+    C entries on the current stream: no checks, no allocation, no count
+    (``adapt`` maps (name, args) to the arguments of another build's
+    entry)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = [(getattr(lib, name), name,
+              _build.c_args(adapt(name, args) if adapt else args))
+             for name, _, args in seen]
+
+    def run():
+        for fn, name, args in calls:
+            err = fn(*args, stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA launch failed ({err})")
+    return run
+
+
+def sleep_cycles_per_ms(torch):
+    """The rate of torch.cuda._sleep on this card, in cycles per ms."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10 ** 6)
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    b.record()
+    torch.cuda.synchronize()
+    return 10 ** 7 / a.elapsed_time(b)
+
+
+def device_ms(torch, cycles_per_ms, run, n, windows=3):
+    """Device time of one run() in ms, run() only issuing kernels: CUDA
+    events around n back-to-back runs, divided by n, the median of
+    ``windows`` windows.  Each window's runs are queued behind a sleep
+    kernel that outlasts the host's queueing of them (checked), so the
+    device never waits for the host between the two events."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    queue_ms = (time.perf_counter() - t0) * 1000
+    torch.cuda.synchronize()
+    times = []
+    sleep_ms = 2 * queue_ms + 1.0
+    while len(times) < windows:
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        queued = (time.perf_counter() - t0) * 1000
+        b.record()
+        torch.cuda.synchronize()
+        if queued < 0.8 * s.elapsed_time(a):
+            times.append(a.elapsed_time(b) / n)
+        elif sleep_ms > 1000:
+            raise RuntimeError(f"device_ms: queueing {n} runs took "
+                               f"{queued:.1f} ms, past any sleep")
+        else:
+            sleep_ms *= 2
     return statistics.median(times)
 
 
@@ -207,7 +314,17 @@ def short_time_rms(y, w=160):
                            -1))
 
 
-def main():
+def main(argv=None):
+    ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap_.add_argument("--baseline", type=pathlib.Path, default=None,
+                     help="a directory with earlier ola.cu and extend.cu to "
+                          "time in turns with the current kernels")
+    baseline = ap_.parse_args(argv).baseline
+    if baseline is not None and not all(
+            (baseline / f).is_file() for f in ("ola.cu", "extend.cu")):
+        print(f"chip_smoke: {baseline} holds no ola.cu and extend.cu",
+              file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -307,9 +424,10 @@ def main():
     if bool(ovf.any()):
         raise AssertionError(f"pulse capacity overflow: {ovf.tolist()}")
     for k in ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend"):
-        if counts.get(k, 0) < 1:
-            raise AssertionError(f"kernel {k} was not launched by the "
-                                 f"main path")
+        if counts.get(k, 0) != 1:
+            raise AssertionError(f"kernel {k} was launched "
+                                 f"{counts.get(k, 0)} times by the main "
+                                 f"path, not once")
 
     with torch.no_grad():
         _, n_path = count_syncs(torch, lambda: batch_wav_to_wav(x, noise,
@@ -343,13 +461,23 @@ def main():
 
     # ---- 4. kernels vs plain versions at the main path's shapes ----
     results = []
+    lib = _build.library()
+    cycles_per_ms = sleep_cycles_per_ms(torch)
+
+    def alone_ms(seen, n, other=None, adapt=None):
+        """Device time alone of the captured launches (through ``other``,
+        an earlier build, with ``adapt`` mapping their arguments)."""
+        return device_ms(torch, cycles_per_ms, replayer(
+            torch, _build, other or lib, seen, adapt), n)
+
     with torch.no_grad():
         y_dec = H.decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
         filt = H.band_filter(y_dec, geo)
         bounds = torch.as_tensor(geo.boundary_f0, dtype=torch.float32,
                                  device=dev)
         zargs = zc_kernel.geometry_args(geo)
-        zk = zc_kernel.band_candidates_cuda(filt, bounds, **zargs)
+        zk, z_seen = capture(_build, lambda: zc_kernel.band_candidates_cuda(
+            filt, bounds, **zargs))
         zp = zc_kernel.band_candidates_plain(filt, bounds, **zargs)
         both = (zk > 0) & (zp > 0)
         flips = int(((zk > 0) != (zp > 0)).sum())
@@ -360,7 +488,8 @@ def main():
             f"max rel {rel:.2e}, gate flips {flips} (tol 0: bit-exact)")
         if not torch.equal(zk, zp):
             raise AssertionError("zc kernel disagrees with its plain version")
-        z_ms = median_ms(torch, lambda: zc_kernel.band_candidates_cuda(
+        z_ms = alone_ms(z_seen, 30)
+        z_call = median_ms(torch, lambda: zc_kernel.band_candidates_cuda(
             filt, bounds, **zargs), 10)
         z_plain = median_ms(torch, lambda: zc_kernel.band_candidates_plain(
             filt, bounds, **zargs), 3)
@@ -374,7 +503,8 @@ def main():
             replaces="worldtpu/ops/zc_kernel.py:112",
             launches=counts["wt_zc"],
             launches_main=counts["wt_zc"], max_abs_err=zerr, ms=z_ms,
-            plain_ms=z_plain, bound=z_bound, library_ms=None))
+            call_ms=z_call, plain_ms=z_plain, bound=z_bound,
+            library_ms=None))
 
         cand, _, _ = H.candidates_stage(y_dec, mean, geo)
         tpos = torch.arange(geo.f0_length, dtype=torch.float32,
@@ -383,7 +513,8 @@ def main():
                                      dedup_tol=H.REFINE_DEDUP_TOL)
         rk_args = prep["kernel_args"]
         rkw = dict(hwmax=geo.max_half_window, n_fft=geo.refine_fft)
-        rk = refine_kernel.spectral_sums_cuda(*rk_args, **rkw)
+        rk, r_seen = capture(_build, lambda: refine_kernel.spectral_sums_cuda(
+            *rk_args, **rkw))
         rp = refine_kernel.spectral_sums_plain(*rk_args, **rkw)
         rerr = float((rk - rp).abs().max())
         rscale = float(rp.abs().max())
@@ -400,7 +531,8 @@ def main():
         if rerr > REFINE_REL * rscale or frel > REFINE_F0_REL or fflips:
             raise AssertionError("refine kernel disagrees with its plain "
                                  "version")
-        r_ms = median_ms(torch, lambda: refine_kernel.spectral_sums_cuda(
+        r_ms = alone_ms(r_seen, 30)
+        r_call = median_ms(torch, lambda: refine_kernel.spectral_sums_cuda(
             *rk_args, **rkw), 10)
         r_plain = median_ms(torch, lambda: refine_kernel.spectral_sums_plain(
             *rk_args, **rkw), 3)
@@ -430,17 +562,19 @@ def main():
             replaces="worldtpu/ops/refine_kernel.py:49",
             launches=counts["wt_refine_sums"],
             launches_main=counts["wt_refine_sums"], max_abs_err=rerr, ms=r_ms,
-            plain_ms=r_plain, bound=r_bound, library_ms=None))
+            call_ms=r_call, plain_ms=r_plain, bound=r_bound,
+            library_ms=None))
 
         tpos5 = torch.arange(n_grid, dtype=torch.float32, device=dev) \
             * (geo.frame_period / 1000.0)
         spec = cheaptrick_frames(x, f0, tpos5, fs=FS, fft_size=ck.fft_size,
                                  max_half_window=ck.max_half_window)
         ap = d4c_frames(x, f0, tpos5, fs=FS, fft_size_out=ck.fft_size)
-        resp, starts, _ = S.pulse_train(
+        resp, starts, n_pulses, _ = S.pulse_train(
             f0, spec, ap, noise, fs=FS, fft_size=ck.fft_size,
             frame_period_s=0.005 * DUR, out_length=out_len, max_pulses=mp)
-        ok_ = ola_kernel.overlap_add_cuda(resp, starts, out_len)
+        ok_, o_seen = capture(_build, lambda: ola_kernel.overlap_add_cuda(
+            resp, starts, out_len, n_pulses))
         op = ola_kernel.overlap_add_plain(resp, starts, out_len)
         oerr = float((ok_ - op).abs().max())
         obad = int(((ok_ - op).abs() > OLA_ATOL + OLA_RTOL * op.abs()).sum())
@@ -449,13 +583,16 @@ def main():
             f"out of tolerance {obad}")
         if obad:
             raise AssertionError("OLA kernel disagrees with its plain version")
-        o_ms = median_ms(torch, lambda: ola_kernel.overlap_add_cuda(
-            resp, starts, out_len), 20)
+        o_ms = alone_ms(o_seen, 100)
+        o_call = median_ms(torch, lambda: ola_kernel.overlap_add_cuda(
+            resp, starts, out_len, n_pulses), 20)
         o_plain = median_ms(torch, lambda: ola_kernel.overlap_add_plain(
             resp, starts, out_len), 5)
-        # only real pulses need their responses (padding pulses carry
-        # zero responses); one add per response sample
-        real = int((resp != 0).any(-1).sum())
+        # only the real pulses need their responses (the padding pulses
+        # after them carry zero responses); one add per response sample
+        real = int(n_pulses.sum())
+        zero_tail = bool((resp[torch.arange(mp, device=dev)[None, :]
+                               >= n_pulses[:, None]] == 0).all())
         o_bound = bound(real * resp.shape[2] * 4 + nbytes(starts, ok_),
                         real * resp.shape[2])
         # the library yardstick: the index_add_ of overlap_add_plain, its
@@ -468,18 +605,24 @@ def main():
         flat_t = (torch.where(okm, target, out_len) + rows).reshape(-1)
         flat_v = torch.where(okm, resp, 0.0).reshape(-1)
         acc = torch.zeros(BATCH * (out_len + 1), device=dev)
-        o_lib = median_ms(torch, lambda: acc.index_add_(0, flat_t, flat_v),
-                          20)
+        o_lib = device_ms(torch, cycles_per_ms,
+                          lambda: acc.index_add_(0, flat_t, flat_v), 10)
         del target, okm, flat_t, flat_v, acc
-        log(f"ola: {real} real pulses of {starts.numel()}; library call "
-            f"index_add_ {o_lib:.3f} ms beside the kernel {o_ms:.3f} ms  "
+        log(f"ola: {real} real pulses of {starts.numel()} (per utterance "
+            f"{n_pulses.tolist()}); the kernel scans no padding pulse past "
+            f"the count: {starts.numel() - real} not scanned (zero "
+            f"responses: {zero_tail}); library call index_add_ {o_lib:.4f} "
+            f"ms beside the kernel {o_ms:.4f} ms (device time alone)  "
             f"[{card}]")
+        if not zero_tail:
+            raise AssertionError("padding pulses with nonzero responses")
         results.append(dict(
             name="ola", source="worldtpu_torch/csrc/ola.cu",
             replaces="worldtpu/ops/ola_kernel.py:51",
             launches=counts["wt_ola"],
             launches_main=counts["wt_ola"], max_abs_err=oerr, ms=o_ms,
-            plain_ms=o_plain, bound=o_bound, library_ms=o_lib))
+            call_ms=o_call, plain_ms=o_plain, bound=o_bound,
+            library_ms=o_lib))
 
         # the extend walk on the batch's own walks: the arguments the
         # contour chain passes (one call per chain)
@@ -498,41 +641,91 @@ def main():
         if len(seen) != 1:
             raise AssertionError(f"{len(seen)} extend walks per chain")
         wargs, wkw = seen[0]
-        ek = extend_kernel.extend_walk_cuda(*wargs, **wkw)
+        ek, e_seen = capture(_build, lambda: extend_kernel.extend_walk_cuda(
+            *wargs, **wkw))
         ep = extend_kernel.extend_walk_plain(*wargs, **wkw)
         eerr = max(float((a.double() - b.double()).abs().max())
                    for a, b in zip(ek, ep))
         n_on = ek[2]
+        longest = int(n_on.max())
         log(f"extend: {tuple(n_on.shape)} walks (B, W), S={wargs[0].shape[2]}"
             f", steps run {int(n_on.sum())} of "
             f"{n_on.numel() * (wkw['ext_lim'] + 1)} (longest "
-            f"{int(n_on.max())}); kernel vs plain in vals/scs/n_on/so: max "
+            f"{longest}); kernel vs plain in vals/scs/n_on/so: max "
             f"abs diff {eerr} (tol 0, exact)")
         if not all(torch.equal(a, b) for a, b in zip(ek, ep)):
             raise AssertionError("extend kernel disagrees with its plain "
                                  "version")
-        e_ms = median_ms(torch, lambda: extend_kernel.extend_walk_cuda(
+        e_ms = alone_ms(e_seen, 100)
+        e_call = median_ms(torch, lambda: extend_kernel.extend_walk_cuda(
             *wargs, **wkw), 20)
         e_plain = median_ms(torch, lambda: extend_kernel.extend_walk_plain(
             *wargs, **wkw), 5)
         # the steps actually run, each reading one candidate row and one
-        # score row of S floats and writing a value and a score; per walk
-        # its five arguments and two results
+        # score row of S floats; per walk its five arguments, the two step
+        # rows of E values and two results
         steps = int(n_on.sum())
         S_ = wargs[0].shape[2]
-        e_bound = bound(steps * (2 * S_ * 4 + 8) + nbytes(*wargs[2:])
-                        + 16 * n_on.numel(), steps * 6 * S_)
+        e_bound = bound(steps * 2 * S_ * 4 + nbytes(*wargs[2:], *ek),
+                        steps * 6 * S_)
+        log(f"extend chain floor: the longest walk runs {longest} dependent "
+            f"steps; device time alone {e_ms:.4f} ms = "
+            f"{1000 * e_ms / max(longest, 1):.3f} us per step of it, beside "
+            f"the byte bound {e_bound[0]:.4f} ms  [{card}]")
         results.append(dict(
             name="extend", source="worldtpu_torch/csrc/extend.cu",
             replaces="worldtpu/ops/extend_kernel.py:44",
             launches=counts["wt_extend"],
             launches_main=counts["wt_extend"], max_abs_err=eerr, ms=e_ms,
-            plain_ms=e_plain, bound=e_bound, library_ms=None))
+            call_ms=e_call, plain_ms=e_plain, bound=e_bound,
+            library_ms=None, longest_walk=longest))
+
+        if baseline is not None:
+            # the designs the current OLA and extend kernels replaced, built
+            # from baseline's sources as a second library: their results
+            # on the same inputs, then their device times alone on the
+            # same captured arguments, in turns with the current ones (the
+            # current OLA also without the pulse count)
+            so_path, _ = _build.build([baseline / "ola.cu",
+                                       baseline / "extend.cu"])
+            old = ctypes.CDLL(str(so_path))
+            for nm, sig in OLD_ENTRIES.items():
+                getattr(old, nm).argtypes = list(sig)
+                getattr(old, nm).restype = ctypes.c_int
+            o_old = torch.empty_like(ok_)
+            e_old = [torch.empty_like(t) for t in ek]
+            replayer(torch, _build, old,
+                     [(nm, d, (a[0], a[1], o_old) + a[4:])
+                      for nm, d, a in o_seen]
+                     + [(nm, d, a[:7] + tuple(e_old) + a[11:])
+                        for nm, d, a in e_seen])()
+            torch.cuda.synchronize()
+            log(f"baseline kernels on the same inputs: OLA max abs diff "
+                f"from the current {float((o_old - ok_).abs().max()):.3e}; "
+                f"extend equal to the current in all four outputs "
+                f"{all(torch.equal(a, b) for a, b in zip(e_old, ek))}")
+            o_nocount = [(nm, d, a[:2] + (None,) + a[3:])
+                         for nm, d, a in o_seen]
+            ab = {k: [] for k in ("ola old", "ola new", "ola new, no count",
+                                  "extend old", "extend new")}
+            for turn in ("old", "new", "new", "old"):
+                if turn == "old":
+                    ab["ola old"].append(alone_ms(
+                        o_seen, 100, old, lambda nm, a: a[:2] + a[3:]))
+                    ab["extend old"].append(alone_ms(e_seen, 100, old))
+                else:
+                    ab["ola new"].append(alone_ms(o_seen, 100))
+                    ab["ola new, no count"].append(alone_ms(o_nocount, 100))
+                    ab["extend new"].append(alone_ms(e_seen, 100))
+            log("baseline vs current, device time alone, in turns (old, new, "
+                "new, old): " + "; ".join(
+                    f"{k} {[round(v, 4) for v in vs]} ms"
+                    for k, vs in ab.items()) + f"  [{card}]")
 
         # the zc phase-1 entry, its own path: counts from 0
         groups = zc_kernel.make_groups(geo)
         _build.launches.clear()
-        evs = zc_kernel.zc_events(filt, geo)
+        evs, ze_seen = capture(_build, lambda: zc_kernel.zc_events(filt, geo))
         torch.cuda.synchronize()
         ev_launches = _build.launches["wt_zc_events"]
         if ev_launches != len(groups):
@@ -557,12 +750,14 @@ def main():
         if not same:
             raise AssertionError("zc events kernel disagrees with its plain "
                                  "version")
-        ze_ms = median_ms(torch, lambda: zc_kernel.zc_events(filt, geo), 10)
+        ze_ms = alone_ms(ze_seen, 20)
+        ze_call = median_ms(torch, lambda: zc_kernel.zc_events(filt, geo),
+                            10)
         ze_plain = median_ms(torch, lambda: [zc_kernel.zc_events_plain(
             filt, g.lo, g.hi, e_cap=g.e_cap, c_row=g.c_row)
             for g in groups], 3)
         log(f"zc split: events alone (phase 1, {len(groups)} launches) "
-            f"{ze_ms:.3f} ms beside the full zc kernel {z_ms:.3f} ms  "
+            f"{ze_ms:.4f} ms beside the full zc kernel {z_ms:.4f} ms  "
             f"[{card}]")
         ze_bound = bound(nbytes(filt) + sum(nbytes(ev, cc)
                                             for ev, cc in evs),
@@ -571,8 +766,8 @@ def main():
             name="zc_events", source="worldtpu_torch/csrc/zc_events.cu",
             replaces="worldtpu/ops/zc_kernel.py:349", launches=ev_launches,
             launches_main=counts.get("wt_zc_events", 0),
-            max_abs_err=zeerr, ms=ze_ms, plain_ms=ze_plain, bound=ze_bound,
-            library_ms=None))
+            max_abs_err=zeerr, ms=ze_ms, call_ms=ze_call, plain_ms=ze_plain,
+            bound=ze_bound, library_ms=None))
 
         # the contour chain and the main path with the plain walk (before
         # the extend kernel) and with the kernel, in turns in this process
@@ -609,10 +804,10 @@ def main():
         "their inputs")
     for r in results:
         b_ms, b_by = r["bound"]
-        log(f"{r['name']}: kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), share "
-            f"{b_ms / r['ms']:.3f}, library "
-            f"{'-' if r['library_ms'] is None else round(r['library_ms'], 3)}"
+        log(f"{r['name']}: kernel alone {r['ms']:.4f} ms (with its wrapper "
+            f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), share {b_ms / r['ms']:.3f}, library "
+            f"{'-' if r['library_ms'] is None else round(r['library_ms'], 4)}"
             f" ms  [{card}]")
 
     # ---- 5. port on the card vs port on the CPU, t22 fixture batch ----

@@ -94,11 +94,65 @@ def test_ola_kernel_matches_plain(dev):
     torch.testing.assert_close(k, p, rtol=1e-5, atol=1e-5)
 
 
+def ola_padded_tail(seed, P=600, fft=1024, T=40000, n_real=(420, 37, 0)):
+    """OLA inputs laid out as the time base lays them out: per utterance
+    n_real pulses in time order, then padding pulses with zero responses,
+    all at one start near the end (``pulse_train``: sample T-1, so start
+    T - fft/2).  Utterance 1's real pulses end early, so the tiles past
+    them hold only padding; utterance 2 has none."""
+    rng = np.random.RandomState(seed)
+    B = len(n_real)
+    resp = rng.randn(B, P, fft).astype(np.float32)
+    starts = np.full((B, P), T - fft // 2, np.int32)
+    for b, n in enumerate(n_real):
+        hi = T - fft if b != 1 else T // 4
+        starts[b, :n] = np.sort(rng.randint(-(fft - 1), hi, n))
+        resp[b, n:] = 0.0
+    return resp, starts, np.array(n_real, np.int64)
+
+
+@pytest.mark.parametrize("with_count", [False, True])
+def test_ola_kernel_padded_tail(dev, with_count):
+    """The padded-tail layout, with and without the pulse count (tiles of
+    padding only included): the kernel against its plain version."""
+    resp, starts, n = (torch.tensor(a, device=dev)
+                       for a in ola_padded_tail(2))
+    T = 40000
+    cnt = n if with_count else None
+    n0 = _build.launches["wt_ola"]
+    k = TO.overlap_add(resp, starts, T, cnt)
+    assert _build.launches["wt_ola"] == n0 + 1
+    p = TO.overlap_add_plain(resp, starts, T)
+    torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-5)
+    assert bool((k[2] == 0).all()) and bool((k[1, T // 4 + 1024:] == 0).all())
+
+
+def test_ola_kernel_count_cuts_pulses(dev):
+    """With the count the kernel adds no pulse past it, even one whose
+    response is not zero (the plain version masks the same pulses)."""
+    resp, starts, n = ola_padded_tail(3)
+    resp[:, -5:] = 1.0
+    resp, starts, n = (torch.tensor(a, device=dev) for a in (resp, starts, n))
+    T = 40000
+    k = TO.overlap_add(resp, starts, T, n)
+    torch.testing.assert_close(k, TO.overlap_add_plain(resp, starts, T, n),
+                               rtol=1e-4, atol=1e-5)
+    assert not torch.allclose(k, TO.overlap_add_plain(resp, starts, T))
+
+
 def test_cuda_wrapper_checks(dev):
     resp = torch.zeros((1, 2, 128), device=dev, dtype=torch.float64)
     starts = torch.zeros((1, 2), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="float32"):
         TO.overlap_add(resp, starts, 100)
+    with pytest.raises(ValueError, match="n_pulses"):
+        TO.overlap_add(resp.float(), starts, 100,
+                       torch.ones(1, dtype=torch.int32, device=dev))
+    cand = torch.zeros((1, 4, TE.MAX_SLOTS + 1), device=dev)
+    w = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="candidate slots"):
+        TE.extend_walk(cand, cand, w, w + 1, w == 0, w, w.float(),
+                       ext_lim=2, miss_lim=1, allowed_range=0.18)
 
 
 def test_main_path_launches_kernels(dev):
@@ -157,6 +211,135 @@ def test_extend_kernel_matches_plain(stage_inputs):
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert int(k[2].max()) > 0
+
+
+def extend_edge_case(S, seed=0):
+    """Extend-walk inputs (numpy; B=2 utterances of F=64 frames with S
+    candidate slots, W=8 walks each) whose walks reach the walk's edge
+    cases.  Utterance 0, walk by walk:
+      0. a NaN candidate in a row that also holds an exact match: a miss;
+      1. and 2. two candidates at the same error from the reference (180
+         and 220 around 200): the later slot wins, in either order;
+      3. a miss scored by its zero-candidate slots (3.0 and 7.5), a miss
+         with no zero slot (score 0), an accept whose slot has a NaN
+         score (score NaN), an accept of a value held by two slots (the
+         larger score);
+      4. three accepts, then misses until miss_lim on its last allowed
+         step;
+      5. distance 0 (one step); 6. not live; 7. no reference yet (tmp0 0,
+         so the reference is 1).
+    Utterance 1: walks both ways, some to the table's first and last
+    frames.  Returns (cand, score, origin, shift, live,
+    distance, tmp0) and the walk's keywords (ext_lim 12, miss_lim 3)."""
+    r = np.random.RandomState(seed)
+    B, F, W = 2, 64, 8
+    far = r.uniform(400.0, 900.0, (B, F, S))
+    cand = np.where(r.rand(B, F, S) < 0.3, 0.0, far).astype(np.float32)
+    score = r.uniform(0.0, 40.0, (B, F, S)).astype(np.float32)
+    for b in range(B):
+        for f in range(F):
+            if r.rand() < 0.8:
+                cand[b, f, r.randint(S)] = 200.0 * (1 + 0.05 * r.randn())
+
+    def clear(f, zeros=True):
+        cand[0, f] = 900.0
+        if zeros:
+            cand[0, f, ::4] = 0.0
+
+    clear(5)
+    cand[0, 5, 0], cand[0, 5, S - 1] = 200.0, np.nan
+    for f, lo_hi in ((21, (180.0, 220.0)), (39, (220.0, 180.0))):
+        clear(f)
+        cand[0, f, 1], cand[0, f, S - 1] = lo_hi
+    clear(31, zeros=False)
+    cand[0, 31, [0, 2]] = 0.0
+    score[0, 31, [0, 2]] = 3.0, 7.5
+    clear(32, zeros=False)
+    clear(33)
+    cand[0, 33, [3, 5]] = 201.0
+    score[0, 33, [3, 5]] = np.nan, 4.0
+    clear(34)
+    cand[0, 34, [2, 6]] = 199.0
+    score[0, 34, [2, 6]] = 5.0, 9.0
+    for f in (51, 52, 53):
+        clear(f)
+        cand[0, f, S // 2] = 200.0
+    for f in (54, 55, 56, 57):
+        clear(f)
+
+    origin = np.array([[2, 20, 40, 30, 50, 10, 25, 45],
+                       [3, 60, 33, 12, 48, 7, 58, 20]])
+    shift = np.array([[1, 1, -1, 1, 1, -1, 1, -1],
+                      [-1, 1, 1, -1, -1, 1, 1, 1]])
+    distance = np.array([[12, 12, 12, 12, 5, 0, 12, 12],
+                         [2, 2, 12, 11, 12, 12, 4, 12]])
+    live = np.ones((B, W), bool)
+    live[0, 6] = False
+    tmp0 = np.full((B, W), 200.0, np.float32)
+    tmp0[0, 7] = 0.0
+    tmp0[1] = 200.0 * (1 + 0.03 * r.randn(W))
+    return ((cand, score, origin, shift, live, distance, tmp0),
+            dict(ext_lim=12, miss_lim=3, allowed_range=0.18))
+
+
+def check_extend_edge_case(vals, scs, n_on, so):
+    """The edge cases of ``extend_edge_case`` were reached (numpy results
+    of either the plain walk or a kernel)."""
+    assert vals[0, 0, 2] == 0.0 and n_on[0, 0] > 2          # NaN: a miss
+    assert vals[0, 1, 0] == 220.0 and vals[0, 2, 0] == 180.0
+    assert vals[0, 3, 0] == 0.0 and scs[0, 3, 0] == 7.5
+    assert vals[0, 3, 1] == 0.0 and scs[0, 3, 1] == 0.0
+    assert vals[0, 3, 2] == 201.0 and np.isnan(scs[0, 3, 2])
+    assert vals[0, 3, 3] == 199.0 and scs[0, 3, 3] == 9.0
+    assert n_on[0, 4] == 6 and so[0, 4] == 53
+    assert (vals[0, 4, :3] == 200.0).all() and (vals[0, 4, 3:] == 0).all()
+    assert n_on[0, 5] == 1 and n_on[0, 6] == 0 and so[0, 6] == 25
+
+
+#: a reference F0 and three candidates above it whose distances d1 < d2 <
+#: d3 are consecutive floats: d1 / ref and d2 / ref round to the same
+#: error (2.0009444), d3 / ref to the next one up
+TIE_REF = 170.22259521484375
+TIE_CANDS = (510.8285217285156, 510.82855224609375, 510.8285827636719)
+
+
+def extend_tie_case(S):
+    """Two one-step walks (allowed_range 2.5) on rows whose least error is
+    reached by two candidates at different distances: the later slot wins
+    whichever of the two it holds (walk 0: the farther, walk 1: the
+    nearer); the third candidate's error is just above."""
+    cand = np.full((1, 8, S), 900.0, np.float32)
+    score = np.arange(8 * S, dtype=np.float32).reshape(1, 8, S)
+    c1, c2, c3 = TIE_CANDS
+    cand[0, 3, [1, S - 2, S - 1]] = c1, c2, c3
+    cand[0, 4, [0, S - 1]] = c2, c1
+    args = (cand, score, np.array([[2, 5]]), np.array([[1, -1]]),
+            np.ones((1, 2), bool), np.zeros((1, 2), np.int64),
+            np.full((1, 2), TIE_REF, np.float32))
+    return args, dict(ext_lim=2, miss_lim=1, allowed_range=2.5)
+
+
+@pytest.mark.parametrize("S", [13, 45, 128, 200])
+def test_extend_kernel_ties_of_distinct_distances(dev, S):
+    args, kw = extend_tie_case(S)
+    args = [torch.tensor(a, device=dev) for a in args]
+    k = TE.extend_walk(*args, **kw)
+    for a, b in zip(k, TE.extend_walk_plain(*args, **kw)):
+        assert torch.equal(a, b)
+    assert k[0][0, :, 0].tolist() == [TIE_CANDS[1], TIE_CANDS[0]]
+
+
+@pytest.mark.parametrize("S", [13, 45, 128, 200])
+def test_extend_kernel_edge_cases(dev, S):
+    """The kernel equals the plain walk value for value (NaN where it
+    has NaN) on tables that reach each edge case."""
+    args, kw = extend_edge_case(S)
+    args = [torch.tensor(a, device=dev) for a in args]
+    k = TE.extend_walk(*args, **kw)
+    p = TE.extend_walk_plain(*args, **kw)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    check_extend_edge_case(*(t.cpu().numpy() for t in k))
 
 
 def test_zc_events_kernel_matches_plain(stage_inputs):

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cuda import (TIE_CANDS, check_extend_edge_case,
+                             extend_edge_case, extend_tie_case)
 from worldtpu.analysis import contour_device as CD
 from worldtpu.ops.extend_kernel import extend_walk as j_extend_walk
 from worldtpu_torch.analysis import contour_device as TCD
@@ -50,24 +52,19 @@ def _walks(F, W, f0, seed, ext_lim):
     return origin, shift, live, np.abs(limit - origin), tmp0
 
 
-@pytest.mark.parametrize("S,ext_lim,miss_lim", [(13, 100, 4),
-                                                (128, 40, 2)])
-def test_extend_walk_plain_matches_pallas_interpret(S, ext_lim, miss_lim):
-    F, W, B = 400, 24, 2
-    tabs = [_table(F, S, b) for b in range(B)]
-    walks = [_walks(F, W, f0, b, ext_lim) for b, (_, _, f0) in
-             enumerate(tabs)]
-    cand = np.stack([c for c, _, _ in tabs])
-    score = np.stack([s for _, s, _ in tabs])
-    origin, shift, live, dist, tmp0 = (np.stack(a) for a in zip(*walks))
-    kw = dict(ext_lim=ext_lim, miss_lim=miss_lim, allowed_range=0.18)
+def _plain_vs_pallas(cand, score, origin, shift, live, dist, tmp0, **kw):
+    """The plain walk on the CPU against the Pallas kernel in interpret
+    mode, utterance by utterance: n_on and so equal, the values and scores
+    of the ON steps equal (NaN where the other has NaN), zeros after.
+    Returns the plain walk's results and the Pallas n_on per utterance."""
+    B, F, S = cand.shape
+    E = kw["ext_lim"] + 1
     vals, scs, n_on, so = TE.extend_walk(
         torch.tensor(cand), torch.tensor(score), torch.tensor(origin),
         torch.tensor(shift), torch.tensor(live), torch.tensor(dist),
         torch.tensor(tmp0), **kw)
-    E = ext_lim + 1
-    assert vals.shape == scs.shape == (B, W, E)
-    stops = full = 0
+    assert vals.shape == scs.shape == (B, origin.shape[1], E)
+    j_n = []
     for b in range(B):
         packed = np.zeros((F, 256), np.float32)
         packed[:, :S] = cand[b]
@@ -80,16 +77,57 @@ def test_extend_walk_plain_matches_pallas_interpret(S, ext_lim, miss_lim):
         jv, js, jn = np.asarray(jv), np.asarray(js), np.asarray(jn)
         np.testing.assert_array_equal(n_on[b].numpy(), jn)
         np.testing.assert_array_equal(so[b].numpy(), np.asarray(jso))
-        for w in range(W):
+        for w in range(origin.shape[1]):
             n = jn[w]
             np.testing.assert_array_equal(vals[b, w, :n].numpy(), jv[w, :n])
             np.testing.assert_array_equal(scs[b, w, :n].numpy(), js[w, :n])
         assert torch.all(vals[b][torch.arange(E) >= n_on[b][:, None]] == 0)
+        j_n.append(jn)
+    return (vals, scs, n_on, so), j_n
+
+
+@pytest.mark.parametrize("S,ext_lim,miss_lim", [(13, 100, 4),
+                                                (128, 40, 2)])
+def test_extend_walk_plain_matches_pallas_interpret(S, ext_lim, miss_lim):
+    F, W, B = 400, 24, 2
+    tabs = [_table(F, S, b) for b in range(B)]
+    walks = [_walks(F, W, f0, b, ext_lim) for b, (_, _, f0) in
+             enumerate(tabs)]
+    cand = np.stack([c for c, _, _ in tabs])
+    score = np.stack([s for _, s, _ in tabs])
+    origin, shift, live, dist, tmp0 = (np.stack(a) for a in zip(*walks))
+    kw = dict(ext_lim=ext_lim, miss_lim=miss_lim, allowed_range=0.18)
+    _, j_n = _plain_vs_pallas(cand, score, origin, shift, live, dist, tmp0,
+                              **kw)
+    E = ext_lim + 1
+    stops = full = 0
+    for b, jn in enumerate(j_n):
         stops += int(((jn < np.minimum(dist[b] + 1, E)) & live[b]).sum())
         full += int((jn == E).sum())
         assert (jn[~live[b]] == 0).all()
     # the cases the walk has: stopped by misses, run to ext_lim, dead
     assert stops > 0 and full > 0 and not live.all()
+
+
+@pytest.mark.parametrize("S", [13, 45, 128])
+def test_extend_walk_edge_cases_match_pallas_interpret(S):
+    """The walk's edge cases the CUDA kernel must keep (a NaN in a row,
+    ties on the least error, a miss scored by zero-candidate slots, a stop
+    at miss_lim on the last allowed step, distance 0, S not a multiple of
+    32): the plain walk equals the Pallas kernel and reaches each case."""
+    args, kw = extend_edge_case(S)
+    out, _ = _plain_vs_pallas(*args, **kw)
+    check_extend_edge_case(*(t.numpy() for t in out))
+
+
+def test_extend_walk_ties_of_distinct_distances():
+    """Two candidates at different distances from the reference whose
+    errors round to the same float: the plain walk and the Pallas kernel
+    both keep the later slot.  S = 128: below it the Pallas kernel's zero
+    pad slots (error 1 < allowed_range 2.5 here) would win the step."""
+    args, kw = extend_tie_case(128)
+    out, _ = _plain_vs_pallas(*args, **kw)
+    assert out[0][0, :, 0].tolist() == [TIE_CANDS[1], TIE_CANDS[0]]
 
 
 def _contour_batch(F, S, seeds):

@@ -6,7 +6,8 @@ zc is compared with the jnp twin the TPU kernel is tested against
 (``vmap(harvest._band_candidates)``; the Pallas zc in interpret mode takes
 ~40 s a case).  zc events, refine and OLA are compared with their Pallas
 kernels in interpret mode, which is what the TPU computes; the zc capacity
-model with JAX's dense one.  (The extend walk: test_torch_extend.py.)"""
+model with JAX's dense one; the pulse count pulse_train hands the OLA
+kernel with JAX's time base.  (The extend walk: test_torch_extend.py.)"""
 
 import functools
 
@@ -16,15 +17,18 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cuda import ola_padded_tail
 from worldtpu.analysis import harvest as H
 from worldtpu.ops import zc_kernel as Z
 from worldtpu.ops.ola_kernel import overlap_add as j_overlap_add
 from worldtpu.ops.refine_kernel import refine_stage_pallas
+from worldtpu.synthesis import synthesis as JS
 from worldtpu_torch import convert
 from worldtpu_torch.analysis import harvest as TH
 from worldtpu_torch.ops import ola_kernel as TO
 from worldtpu_torch.ops import refine_kernel as TR
 from worldtpu_torch.ops import zc_kernel as TZ
+from worldtpu_torch.synthesis import synthesis as TS
 
 torch.set_num_threads(1)
 
@@ -175,6 +179,61 @@ def test_ola_plain_matches_pallas_interpret_and_scatter():
         sc = np.zeros(T + 1, np.float64)
         np.add.at(sc, np.where(ok, tgt, T), np.where(ok, resp[b], 0.0))
         np.testing.assert_allclose(out[b], sc[:T], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_count", [False, True])
+def test_ola_padded_tail_matches_pallas_interpret_and_scatter(with_count):
+    """The time base's layout: real pulses, then zero-response padding
+    pulses at one start near the end (an utterance of padding only too),
+    with and without the pulse count: equal to the Pallas OLA in
+    interpret mode, which adds every pulse, and to a numpy scatter."""
+    T, fft = 9000, 512
+    resp, starts, n = ola_padded_tail(4, P=120, fft=fft, T=T,
+                                      n_real=(80, 10, 0))
+    out = TO.overlap_add(torch.tensor(resp), torch.tensor(starts), T,
+                         torch.tensor(n) if with_count else None).numpy()
+    assert (out[2] == 0).all()
+    for b in range(3):
+        ref = np.asarray(j_overlap_add(jnp.asarray(resp[b]),
+                                       jnp.asarray(starts[b]), T,
+                                       interpret=True))
+        np.testing.assert_allclose(out[b], ref, rtol=1e-5, atol=1e-5)
+        tgt = starts[b, :n[b], None] + np.arange(fft)
+        ok = (tgt >= 0) & (tgt < T)
+        sc = np.zeros(T + 1, np.float64)
+        np.add.at(sc, np.where(ok, tgt, T), np.where(ok, resp[b, :n[b]], 0))
+        np.testing.assert_allclose(out[b], sc[:T], rtol=1e-5, atol=1e-5)
+
+
+def test_pulse_train_count_matches_jax_time_base():
+    """pulse_train's pulse count (what the OLA kernel scans) equals the
+    count of JAX's _time_base for the same F0, an overflowing utterance
+    clamped at max_pulses included; the pulses past it have zero
+    responses and the starts do not decrease."""
+    fs, fft, fp, F = 16000, 1024, 0.005, 120
+    r = np.random.RandomState(6)
+    t = np.arange(F)
+    f0 = np.stack([150 + 30 * np.sin(t / 9.0), np.full(F, 700.0)])
+    f0[0, 30:55] = 0.0
+    f0 = f0.astype(np.float32)
+    K = fft // 2 + 1
+    spec = r.uniform(1e-4, 1e-2, (2, F, K)).astype(np.float32)
+    ap = r.uniform(0.01, 0.99, (2, F, K)).astype(np.float32)
+    out_len = int((F - 1) * fp * fs) + 1
+    mp = 300
+    noise = r.randn(2, mp, fft).astype(np.float32)
+    resp, starts, n, ovf = TS.pulse_train(
+        torch.tensor(f0), torch.tensor(spec), torch.tensor(ap),
+        torch.tensor(noise), fs=fs, fft_size=fft, frame_period_s=fp,
+        out_length=out_len, max_pulses=mp)
+    lowest = fs / fft + 1.0
+    for b in range(2):
+        ref = JS._time_base(jnp.asarray(f0[b]), fs, fp, out_len, lowest, mp)
+        assert int(n[b]) == int(ref[2])
+        assert bool(ovf[b]) == bool(ref[5])
+        assert bool((resp[b, int(n[b]):] == 0).all())
+    assert ovf.tolist() == [False, True] and int(n[1]) == mp
+    assert bool((starts[:, 1:] >= starts[:, :-1]).all())
 
 
 def test_wrappers_refuse_other_devices():

@@ -66,8 +66,8 @@ _SIGNATURES = {
     # seg, delta, hw, gbin, n_active, offs, twiddle, out, n_frames, cap,
     # wseg, hwmax, n_fft, stream
     "wt_refine_sums": (_P,) * 8 + (_I,) * 5 + (_P,),
-    # resp, starts, out, B, P, fft, T, stream
-    "wt_ola": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # resp, starts, n_pulses (or NULL), out, B, P, fft, T, stream
+    "wt_ola": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # cand, score, origin, shift, live, distance, tmp0, vals, scs, n_on, so,
     # B, W, F, S, E, miss_lim, allowed_range, stream
     "wt_extend": (_P,) * 11 + (_I,) * 6 + (_F, _P),
@@ -110,35 +110,37 @@ def _source_hash(sources):
     return h.hexdigest()[:16]
 
 
+def build(sources):
+    """Compile ``sources`` (``*.cu`` paths) into one shared library under
+    ``BUILD_ROOT/<hash>/`` unless it is there already; return (its path,
+    the build's wall seconds: 0.0 when it was there)."""
+    out_dir = BUILD_ROOT / _source_hash(sources)
+    so = out_dir / "libworldtpu_kernels.so"
+    if so.exists():
+        return so, 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [f"{tmp}/{src.stem}.o" for src in sources]
+        with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+            logs = list(ex.map(_run, ([nvcc, *compile_flags(src), "-Xptxas",
+                                       "-v", "-c", "-o", obj, str(src)]
+                                      for src, obj in zip(sources, objs))))
+        (out_dir / "ptxas.json").write_text(json.dumps(
+            {src.stem: log for src, log in zip(sources, logs)}))
+        _run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", f"{tmp}/lib.so", *objs])
+        os.replace(f"{tmp}/lib.so", so)
+    return so, time.perf_counter() - t0
+
+
 def library():
     """The loaded kernel library, building it on first use."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    sources = sorted(CSRC.glob("*.cu"))
-    out_dir = BUILD_ROOT / _source_hash(sources)
-    so = out_dir / "libworldtpu_kernels.so"
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        nvcc = _nvcc()
-        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-            objs = [f"{tmp}/{src.stem}.o" for src in sources]
-            with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
-                logs = list(ex.map(_run, ([nvcc, *compile_flags(src),
-                                           "-Xptxas", "-v", "-c", "-o", obj,
-                                           str(src)]
-                                          for src, obj in zip(sources,
-                                                              objs))))
-            (out_dir / "ptxas.json").write_text(json.dumps(
-                {src.stem: log for src, log in zip(sources, logs)}))
-            _run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", f"{tmp}/lib.so",
-                  *objs])
-            os.replace(f"{tmp}/lib.so", so)
-        build_seconds = time.perf_counter() - t0
-    else:
-        build_seconds = 0.0
-    report = out_dir / "ptxas.json"
+    so, build_seconds = build(sorted(CSRC.glob("*.cu")))
+    report = so.parent / "ptxas.json"
     if report.exists():
         ptxas_report.update(json.loads(report.read_text()))
     lib = ctypes.CDLL(str(so))
@@ -166,13 +168,20 @@ def check_tensor(t, name, dtype, shape=None, device=None):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def c_args(args):
+    """A launch's arguments for its C entry: each tensor as its data
+    pointer, None as NULL, numbers as they are."""
+    return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+
+
 def launch(name, device, *args):
     """Call the C entry ``name`` on ``device``'s current stream (with that
     device current, so the kernel runs where its pointers live); count the
-    launch and raise if the launch was refused."""
+    launch and raise if the launch was refused.  Tensors among ``args`` are
+    passed as their data pointers."""
     fn = getattr(library(), name)
     with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        err = fn(*c_args(args), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     launches[name] += 1

@@ -4,64 +4,146 @@
 // which keeps one utterance's output resident in VMEM and adds each pulse's
 // response at its start offset sequentially.
 //
-//   out[b, t] = sum_p resp[b, p, t - starts[b, p]]   over 0 <= t-start < fft
+//   out[b, t] = sum_{p < n_b} resp[b, p, t - starts[b, p]]
+//               over 0 <= t - starts[b, p] < fft
 //
-// On the H100 this is bound by reading the responses (B*P*fft floats,
-// 134 MB at B=8, P=4096, fft=1024): each response sample is read by exactly
-// one output sample, so the kernel is one streaming pass.  The design has
-// no atomics and is deterministic: pulse starts are non-decreasing per
-// utterance (pulses come in time order; padded pulses sit at the end with
-// zero response), so a block owning an output tile finds the pulses that
-// overlap it by binary search and each thread sums its sample's
-// contributions in pulse order.  Consecutive threads read consecutive
-// response samples, so loads coalesce.
+// with n_b = n_pulses[b] (the real pulses; all P when n_pulses is null).
+// Starts are non-decreasing along p (pulses in time order; the time base
+// pads each utterance with zero-response pulses at one start near the end).
+//
+// What bounds it on the H100: reading the real pulses' responses (n_b * fft
+// floats per utterance, 71.7 MB at chip_smoke's batch), each sample read by
+// exactly one output sample: a streaming pass, 21 us at 3.35 TB/s.  The
+// design, block by block (one block per utterance and 512-sample tile):
+//   - the pulse count cuts the padded tail: without it the three tiles at
+//     the padding's start each walked ~1,900 zero responses, and they set
+//     the whole launch's time;
+//   - the tile's pulse range [p0, p1) comes from two warp-parallel searches
+//     (warp 0 and warp 1 at once; each round a lane tests one of 32 evenly
+//     spaced pulses and a ballot keeps the bucket: 3 rounds for 4,096
+//     pulses in place of one thread's 12-step binary search);
+//   - the range's starts are staged in shared memory, 256 at a time;
+//   - each thread owns two output samples (t and t + 256, coalesced across
+//     the warp) and loads four pulses x two samples before it adds them, so
+//     eight independent response loads are in flight per thread; loads are
+//     4-byte (a response starts at any offset, so 16-byte alignment is not
+//     given).
+// No atomics: each output is summed in pulse order (an out-of-range pulse
+// adds a predicated 0.0f, which leaves any sum unchanged), so the result is
+// deterministic and equal to the former one-sample-per-thread design's.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 256;  // output samples per block (one per thread)
+constexpr int kThreads = 256;
+constexpr int kPer = 2;                   // output samples per thread
+constexpr int kTile = kThreads * kPer;    // output samples per block
+constexpr int kChunk = kThreads;          // starts staged per pass
+constexpr int kUnroll = 4;                // pulses loaded before adding
+constexpr unsigned kFull = 0xffffffffu;
 
-// first index p in [0, n) with a[p] >= v (a non-decreasing)
-__device__ int lower_bound(const int* a, int n, int v) {
+// First index p in [0, n) with a[p] >= v (a non-decreasing), by the whole
+// warp: each round lane i tests a[lo + i * step] and the ballot's count
+// keeps one bucket of length < step.  The invariant: a[p] < v for p < lo,
+// a[p] >= v for hi <= p < n.
+__device__ int warp_lower_bound(const int* a, int n, int v, int lane) {
   int lo = 0, hi = n;
   while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
+    const int step = (hi - lo + 31) >> 5;
+    const int q = lo + lane * step;
+    const unsigned below = __ballot_sync(kFull, q < hi && a[q] < v);
+    const int c = __popc(below);
+    if (c == 0) break;
+    const int nlo = lo + (c - 1) * step + 1;
+    hi = min(lo + c * step, hi);
+    lo = nlo;
   }
   return lo;
 }
 
-__global__ void ola_kernel(const float* __restrict__ resp,
-                           const int* __restrict__ starts,
-                           float* __restrict__ out, int P, int fft, int T) {
+__global__ void __launch_bounds__(kThreads)
+ola_kernel(const float* __restrict__ resp, const int* __restrict__ starts,
+           const long long* __restrict__ n_pulses, float* __restrict__ out,
+           int P, int fft, int T) {
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * kTile;
   const int* st = starts + (size_t)b * P;
+  int n = P;
+  if (n_pulses != nullptr) {
+    const long long nb = n_pulses[b];
+    n = nb < 0 ? 0 : (nb > P ? P : static_cast<int>(nb));
+  }
   __shared__ int range[2];
-  if (threadIdx.x == 0) {
+  __shared__ int sst[kChunk];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < 2) {
     // pulses with start in (t0 - fft, t0 + kTile) touch this tile
-    range[0] = lower_bound(st, P, t0 - fft + 1);
-    range[1] = lower_bound(st, P, t0 + kTile);
+    const int r = warp_lower_bound(st, n, warp == 0 ? t0 - fft + 1
+                                                    : t0 + kTile, lane);
+    if (lane == 0) range[warp] = r;
   }
   __syncthreads();
-  const int t = t0 + threadIdx.x;
-  if (t >= T) return;
-  const float* rb = resp + (size_t)b * P * fft;
-  float acc = 0.0f;
-  for (int p = range[0]; p < range[1]; ++p) {
-    int j = t - st[p];
-    if (j >= 0 && j < fft) acc += rb[(size_t)p * fft + j];
+  const int p0 = range[0], p1 = range[1];
+
+  int t[kPer];
+  bool inside[kPer];
+  float acc[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    t[k] = t0 + threadIdx.x + k * kThreads;
+    inside[k] = t[k] < T;
+    acc[k] = 0.0f;
   }
-  out[(size_t)b * T + t] = acc;
+  const float* rb = resp + (size_t)b * P * fft;
+  for (int base = p0; base < p1; base += kChunk) {
+    const int cnt = min(kChunk, p1 - base);
+    if (threadIdx.x < cnt) sst[threadIdx.x] = st[base + threadIdx.x];
+    __syncthreads();
+    const float* rp = rb + (size_t)base * fft;
+    int i = 0;
+    for (; i + kUnroll <= cnt; i += kUnroll) {
+      float v[kUnroll][kPer];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int s = sst[i + u];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          const int j = t[k] - s;
+          v[u][k] = (inside[k] && j >= 0 && j < fft)
+                        ? __ldg(rp + (size_t)(i + u) * fft + j)
+                        : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) acc[k] += v[u][k];
+    }
+    for (; i < cnt; ++i) {
+      const int s = sst[i];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int j = t[k] - s;
+        if (inside[k] && j >= 0 && j < fft)
+          acc[k] += __ldg(rp + (size_t)i * fft + j);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (inside[k]) out[(size_t)b * T + t[k]] = acc[k];
 }
 
 }  // namespace
 
-extern "C" int wt_ola(const float* resp, const int* starts, float* out,
-                      int B, int P, int fft, int T, void* stream) {
+extern "C" int wt_ola(const float* resp, const int* starts,
+                      const long long* n_pulses, float* out, int B, int P,
+                      int fft, int T, void* stream) {
   dim3 grid((T + kTile - 1) / kTile, B);
-  ola_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      resp, starts, out, P, fft, T);
+  ola_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      resp, starts, n_pulses, out, P, fft, T);
   return static_cast<int>(cudaGetLastError());
 }

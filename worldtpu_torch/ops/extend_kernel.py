@@ -21,6 +21,10 @@ import torch
 from worldtpu_torch import _build
 from worldtpu_torch.ops.numeric import device_kind
 
+#: candidate slots the CUDA kernel takes (8 chunks of 32 lanes; the main
+#: path's Harvest geometry at f0_floor 40 has 126)
+MAX_SLOTS = 256
+
 
 def select_best(ref_f0, cand_rows, allowed_range):
     """Nearest candidate within allowed_range of each ref (ties keep the
@@ -109,11 +113,14 @@ def extend_walk_plain(candidates, scores, origin, shift, live, distance,
 
 def extend_walk_cuda(candidates, scores, origin, shift, live, distance, tmp0,
                      *, ext_lim, miss_lim, allowed_range):
-    """Launch ``wt_extend``: one warp per (utterance, walk)."""
+    """Launch ``wt_extend``: one single-warp block per (utterance, walk)."""
     B, F, S = candidates.shape
     W = origin.shape[1]
     dev = candidates.device
     _build.check_tensor(candidates, "candidates", torch.float32)
+    if not 1 <= S <= MAX_SLOTS:
+        raise ValueError(f"{S} candidate slots: the kernel takes 1 to "
+                         f"{MAX_SLOTS}")
     _build.check_tensor(scores, "scores", torch.float32, (B, F, S), dev)
     for name, t, dt in (("origin", origin, torch.int64),
                         ("shift", shift, torch.int64),
@@ -128,9 +135,7 @@ def extend_walk_cuda(candidates, scores, origin, shift, live, distance, tmp0,
     so = torch.empty((B, W), dtype=torch.int64, device=dev)
     if B * W == 0:
         return vals, scs, n_on, so
-    _build.launch("wt_extend", dev, candidates.data_ptr(), scores.data_ptr(),
-                  origin.data_ptr(), shift.data_ptr(), live.data_ptr(),
-                  distance.data_ptr(), tmp0.data_ptr(), vals.data_ptr(),
-                  scs.data_ptr(), n_on.data_ptr(), so.data_ptr(), B, W, F, S,
-                  E, int(miss_lim), float(allowed_range))
+    _build.launch("wt_extend", dev, candidates, scores, origin, shift, live,
+                  distance, tmp0, vals, scs, n_on, so, B, W, F, S, E,
+                  int(miss_lim), float(allowed_range))
     return vals, scs, n_on, so

@@ -14,31 +14,37 @@ from worldtpu_torch import _build
 from worldtpu_torch.ops.numeric import device_kind
 
 
-def overlap_add(resp, starts, out_length):
-    """Add resp[b, p] into out[b, starts[b, p] : starts[b, p] + fft],
-    dropping samples outside [0, out_length).
+def overlap_add(resp, starts, out_length, n_pulses=None):
+    """Add resp[b, p] into out[b, starts[b, p] : starts[b, p] + fft] for
+    the first n_pulses[b] pulses of each utterance (all of them when
+    n_pulses is None), dropping samples outside [0, out_length).
 
     Args:
         resp: [B, P, fft] float32 responses.
         starts: [B, P] int32 start samples, non-decreasing along P (pulses
             in time order; padding pulses last with zero response).
         out_length: output samples per utterance.
+        n_pulses: optional [B] int64 count of the real pulses (the time
+            base's, on the device): the kernel scans no pulse past it.
 
     Returns:
         [B, out_length] float32.
     """
     if device_kind(resp) == "cpu":
-        return overlap_add_plain(resp, starts, out_length)
-    return overlap_add_cuda(resp, starts, out_length)
+        return overlap_add_plain(resp, starts, out_length, n_pulses)
+    return overlap_add_cuda(resp, starts, out_length, n_pulses)
 
 
-def overlap_add_plain(resp, starts, out_length):
+def overlap_add_plain(resp, starts, out_length, n_pulses=None):
     """Scatter form: one ``index_add_`` of every in-range sample."""
     B, P, fft = resp.shape
     T = out_length
     j = torch.arange(fft, device=resp.device)
     target = starts.to(torch.int64)[..., None] + j
     ok = (target >= 0) & (target < T)
+    if n_pulses is not None:
+        ok = ok & (torch.arange(P, device=resp.device)
+                   < n_pulses[:, None])[..., None]
     row = torch.arange(B, device=resp.device)[:, None, None] * (T + 1)
     flat_t = (torch.where(ok, target, T) + row).reshape(-1)
     flat_v = torch.where(ok, resp, torch.zeros((), dtype=resp.dtype,
@@ -48,13 +54,16 @@ def overlap_add_plain(resp, starts, out_length):
     return out.reshape(B, T + 1)[:, :T]
 
 
-def overlap_add_cuda(resp, starts, out_length):
-    """Launch ``wt_ola``: one block per (utterance, 256-sample tile)."""
+def overlap_add_cuda(resp, starts, out_length, n_pulses=None):
+    """Launch ``wt_ola``: one block per (utterance, 512-sample tile)."""
     B, P, fft = resp.shape
     _build.check_tensor(resp, "resp", torch.float32)
     _build.check_tensor(starts, "starts", torch.int32, (B, P), resp.device)
+    if n_pulses is not None:
+        _build.check_tensor(n_pulses, "n_pulses", torch.int64, (B,),
+                            resp.device)
     out = torch.empty((B, out_length), dtype=torch.float32,
                       device=resp.device)
-    _build.launch("wt_ola", resp.device, resp.data_ptr(), starts.data_ptr(),
-                  out.data_ptr(), B, P, fft, out_length)
+    _build.launch("wt_ola", resp.device, resp, starts, n_pulses, out, B, P,
+                  fft, out_length)
     return out

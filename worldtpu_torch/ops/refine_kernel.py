@@ -261,8 +261,6 @@ def spectral_sums_cuda(seg, delta, hw, gbin, n_active, *, hwmax, n_fft):
     tw = _twiddles(n_fft, dev)
     offs = torch.cumsum(n_active, 0, dtype=torch.int32)
     out = torch.empty((N, cap, 24), dtype=torch.float32, device=dev)
-    _build.launch("wt_refine_sums", dev, seg.data_ptr(), delta.data_ptr(),
-                  hw.data_ptr(), gbin.data_ptr(), n_active.data_ptr(),
-                  offs.data_ptr(), tw.data_ptr(), out.data_ptr(), N, cap, W,
-                  hwmax, n_fft)
+    _build.launch("wt_refine_sums", dev, seg, delta, hw, gbin, n_active, offs,
+                  tw, out, N, cap, W, hwmax, n_fft)
     return out

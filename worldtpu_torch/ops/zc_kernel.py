@@ -162,9 +162,9 @@ def band_candidates_cuda(filt, bounds, *, F, e_max, fs_a, grid_hz, tstep,
     ev = torch.empty((0,) if shared else (n_rows, 4, e_max),
                      dtype=torch.float32, device=filt.device)
     out = torch.empty((B, nb, F), dtype=torch.float32, device=filt.device)
-    _build.launch("wt_zc", filt.device, filt.data_ptr(), bounds.data_ptr(),
-                  ev.data_ptr(), out.data_ptr(), n_rows, nb, L, F, e_max,
-                  fs_a, grid_hz, tstep, f0_floor, f0_ceil, int(shared))
+    _build.launch("wt_zc", filt.device, filt, bounds, ev, out, n_rows, nb, L,
+                  F, e_max, fs_a, grid_hz, tstep, f0_floor, f0_ceil,
+                  int(shared))
     layout_launches[layout] += 1
     return out
 
@@ -292,9 +292,8 @@ def zc_events_cuda(filt, lo, hi, *, e_cap, c_row):
                      device=filt.device)
     ccol = torch.empty((B, nb_g, 4, n_cols), dtype=torch.int32,
                        device=filt.device)
-    _build.launch("wt_zc_events", filt.device, filt.data_ptr(),
-                  ev.data_ptr(), ccol.data_ptr(), B * nb_g, nb, lo, nb_g, L,
-                  e_cap, c_row, n_cols, _round_up(n_cols, 8))
+    _build.launch("wt_zc_events", filt.device, filt, ev, ccol, B * nb_g, nb,
+                  lo, nb_g, L, e_cap, c_row, n_cols, _round_up(n_cols, 8))
     return ev, ccol
 
 

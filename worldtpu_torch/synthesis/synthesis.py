@@ -177,12 +177,12 @@ def synthesis_frames_impl(f0, spectrogram, aperiodicity, noise, *, fs,
         dropped; regrow max_pulses and rerun).
     """
     with record_function("wt.pulse_train"):
-        resp, starts, overflowed = pulse_train(
+        resp, starts, n_pulses, overflowed = pulse_train(
             f0, spectrogram, aperiodicity, noise, fs=fs, fft_size=fft_size,
             frame_period_s=frame_period_s, out_length=out_length,
             max_pulses=max_pulses)
     with record_function("wt.ola"):
-        y = overlap_add(resp, starts, out_length)
+        y = overlap_add(resp, starts, out_length, n_pulses)
     return (y, overflowed) if return_overflow else y
 
 
@@ -202,7 +202,8 @@ def synthesis_frames(f0, spectrogram, aperiodicity, noise, *, fs, fft_size,
 def pulse_train(f0, spectrogram, aperiodicity, noise, *, fs, fft_size,
                 frame_period_s, out_length, max_pulses):
     """Everything before the overlap-add: (resp [B, P, fft_size],
-    starts [B, P] int32 non-decreasing, overflowed [B])."""
+    starts [B, P] int32 non-decreasing, n_pulses [B] int64 real pulses
+    (the rest are padding with zero responses), overflowed [B])."""
     dt = spectrogram.dtype
     f0 = f0.to(dt)
     half = fft_size // 2
@@ -219,7 +220,7 @@ def pulse_train(f0, spectrogram, aperiodicity, noise, *, fs, fft_size,
     pt = idx.to(dt) / fs / frame_period_s
     resp = pulse_responses(pt, shift, ns, vuv_at, valid, spectrogram,
                            aperiodicity, noise, fs=fs, fft_size=fft_size)
-    return (resp.contiguous(), (idx - half + 1).to(torch.int32),
+    return (resp.contiguous(), (idx - half + 1).to(torch.int32), n_pulses,
             overflowed)
 
 

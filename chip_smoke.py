@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py            # from the repository root, one GPU
     python3 chip_smoke.py --baseline DIR
-        # also times the OLA and extend kernels of DIR/ola.cu and
-        # DIR/extend.cu (the designs the current ones replaced: wt_ola
-        # without the pulse count) against the current ones, in turns
+        # also times the earlier designs of the kernels whose sources DIR
+        # holds (ola.cu: wt_ola without the pulse count; extend.cu;
+        # zc_events.cu: one wt_zc_events call per band group) against the
+        # current ones, in turns
 
 Phases (any failure raises, so the exit code is not 0):
   1. environment: python/torch/CUDA versions and the card's name and power
      limit (nvidia-smi);
   2. build: the CUDA kernels from worldtpu_torch/csrc/*.cu for sm_90a (one
      nvcc per source, all started together), with nvcc's -Xptxas -v report
-     (registers, shared memory, spills) of the refine and zc kernels;
+     (registers, shared memory, spills) of the refine, zc and zc events
+     kernels;
   3. main path: batch_wav_to_wav on B=8 synthetic 22.05 kHz utterances
      (bench.synth_utterance_diverse) padded to a multiple of 4096 samples,
      f0_floor 40, pitch x1.2, duration x1.25 (frame period 6.25 ms at
@@ -52,7 +54,23 @@ Phases (any failure raises, so the exit code is not 0):
      with its peak device memory), api.World.copy_synthesis on t22, and the
      CLI (analyze, synthesize, copy-syn --fused) with --device cuda on t22
      into a temporary directory, each in a process where ``jax`` and
-     ``worldtpu`` cannot be imported.
+     ``worldtpu`` cannot be imported;
+  7. float64 on the card (the parity path: dtype=torch.float64 through the
+     same entry points, no fallback to the CPU) at full width on the
+     tests/fixtures utterances t22, t16 and t48, against the C++ golden
+     dumps: Harvest against t*.f0.gz (voicing identical, F0 RMSE < 1e-3
+     Hz), CheapTrick and D4C with the xorshift dither streams against
+     t*.spec.gz and t*.ap.gz (q99.9 < 1e-6), Synthesis with the xorshift
+     noise against t*.syn2.f64.gz (max abs error < 1e-8 x scale), each
+     figure beside its gate and beside the tolerance the CPU tests meet,
+     with the wall of each entry point; the launches of the path's two
+     float64 kernels (the OLA kernel's double instantiation and the
+     sequential cumulative sum), counted from 0; both kernels against their
+     plain versions at t22's shapes (OLA within 1e-12 relative of
+     index_add_, the cumulative sum equal to numpy.cumsum), their device
+     times, bounds and library calls (index_add_, torch.cumsum); and the
+     CLI analyze + synthesize without --f32, --device cuda, with ``jax``
+     and ``worldtpu`` blocked.
 
 The line before the last is a JSON object {"kernels": [...]}: for each
 kernel its launches in the main path's run (``launches_main``; zc_events,
@@ -86,21 +104,37 @@ PITCH = 1.2
 DUR = 1.25
 
 # kernel tolerances (kernel vs plain version, same inputs, same card);
-# zc, extend and zc events are held to exact equality
+# zc, extend, zc events and the sequential cumulative sum are held to exact
+# equality
 REFINE_REL = 1e-5      # DFT sums, abs error over the largest |sum|
 REFINE_F0_REL = 1e-4   # refined F0, relative, where both are nonzero
 OLA_ATOL, OLA_RTOL = 1e-5, 1e-4
+OLA_F64_REL = 1e-12    # float64 OLA vs index_add_, of the largest |y|
+
+# float64 on the card against the C++ dumps: (gate on the card, what the CPU
+# tests hold the same quantity to)
+F64_GATES = {"f0_rmse_hz": (1e-3, 1e-6), "spec_q999_rel": (1e-6, 5e-12),
+             "ap_q999_abs": (1e-6, 1e-10), "syn_max_rel": (1e-8, 1e-10)}
+F64_FIXTURES = ("t22", "t16", "t48")
+# float64 without tensor cores (H100 SXM data sheet); bound() counts
+# float32 operations, so a float64 kernel's count is scaled by the ratio
+PEAK_F64_FLOP_S = 34e12
 
 # the H100 SXM's data-sheet peaks at 700 W (the kernels' bounds)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 
 
-# the C entries of the designs the current OLA and extend kernels replaced
-# (--baseline): wt_ola without the pulse count, wt_extend as now
+# the C entries of the designs the current kernels replaced (--baseline),
+# by source: wt_ola without the pulse count, wt_extend as now, wt_zc_events
+# for one band group (filt, ev, ccol, n_rows, nb, lo, nb_g, L, e_cap, c_row,
+# n_cols, n_store)
 _CP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-OLD_ENTRIES = {"wt_ola": (_CP,) * 3 + (_CI,) * 4 + (_CP,),
-               "wt_extend": (_CP,) * 11 + (_CI,) * 6 + (_CF, _CP)}
+OLD_ENTRIES = {"ola.cu": ("wt_ola", (_CP,) * 3 + (_CI,) * 4 + (_CP,)),
+               "extend.cu": ("wt_extend",
+                             (_CP,) * 11 + (_CI,) * 6 + (_CF, _CP)),
+               "zc_events.cu": ("wt_zc_events",
+                                (_CP,) * 3 + (_CI,) * 9 + (_CP,))}
 
 # runs the CLI (its arguments follow -c) where jax and worldtpu cannot be
 # imported, so any import of either by the port fails the command
@@ -317,12 +351,14 @@ def short_time_rms(y, w=160):
 def main(argv=None):
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--baseline", type=pathlib.Path, default=None,
-                     help="a directory with earlier ola.cu and extend.cu to "
-                          "time in turns with the current kernels")
+                     help="a directory with earlier ola.cu, extend.cu or "
+                          "zc_events.cu to time in turns with the current "
+                          "kernels")
     baseline = ap_.parse_args(argv).baseline
-    if baseline is not None and not all(
-            (baseline / f).is_file() for f in ("ola.cu", "extend.cu")):
-        print(f"chip_smoke: {baseline} holds no ola.cu and extend.cu",
+    old_sources = [] if baseline is None else [
+        f for f in OLD_ENTRIES if (baseline / f).is_file()]
+    if baseline is not None and not old_sources:
+        print(f"chip_smoke: {baseline} holds none of {sorted(OLD_ENTRIES)}",
               file=sys.stderr)
         return 2
     import torch
@@ -359,7 +395,7 @@ def main(argv=None):
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds:.1f} s; flags {' '.join(_build.NVCC_FLAGS)}"
         f"; --fmad=true for {sorted(_build.FMAD)}, false for the rest)")
-    for stem in ("refine", "zc"):
+    for stem in ("refine", "zc", "zc_events"):
         for line in _build.ptxas_report.get(stem, "").splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
@@ -680,18 +716,21 @@ def main(argv=None):
             call_ms=e_call, plain_ms=e_plain, bound=e_bound,
             library_ms=None, longest_walk=longest))
 
-        if baseline is not None:
-            # the designs the current OLA and extend kernels replaced, built
-            # from baseline's sources as a second library: their results
-            # on the same inputs, then their device times alone on the
-            # same captured arguments, in turns with the current ones (the
-            # current OLA also without the pulse count)
-            so_path, _ = _build.build([baseline / "ola.cu",
-                                       baseline / "extend.cu"])
+        old = None
+        if old_sources:
+            # the designs the current kernels replaced, built from
+            # baseline's sources as a second library
+            so_path, _ = _build.build([baseline / f for f in old_sources])
             old = ctypes.CDLL(str(so_path))
-            for nm, sig in OLD_ENTRIES.items():
+            for f in old_sources:
+                nm, sig = OLD_ENTRIES[f]
                 getattr(old, nm).argtypes = list(sig)
                 getattr(old, nm).restype = ctypes.c_int
+        if {"ola.cu", "extend.cu"} <= set(old_sources):
+            # earlier OLA and extend: their results on the same inputs,
+            # then their device times alone on the same captured
+            # arguments, in turns with the current ones (the current OLA
+            # also without the pulse count)
             o_old = torch.empty_like(ok_)
             e_old = [torch.empty_like(t) for t in ek]
             replayer(torch, _build, old,
@@ -728,14 +767,17 @@ def main(argv=None):
         evs, ze_seen = capture(_build, lambda: zc_kernel.zc_events(filt, geo))
         torch.cuda.synchronize()
         ev_launches = _build.launches["wt_zc_events"]
-        if ev_launches != len(groups):
-            raise AssertionError(f"zc events: {ev_launches} launches for "
-                                 f"{len(groups)} groups")
+        if ev_launches != 1 or len(evs) != len(groups):
+            raise AssertionError(f"zc events: {ev_launches} launches (not 1) "
+                                 f"and {len(evs)} results for {len(groups)} "
+                                 f"groups")
         zeerr, kept, same = 0.0, 0, True
+        plains = []
         for g, (ev, cc) in zip(groups, evs):
             pev, pcc = zc_kernel.zc_events_plain(filt, g.lo, g.hi,
                                                  e_cap=g.e_cap,
                                                  c_row=g.c_row)
+            plains.append((pev, pcc))
             same = same and torch.equal(cc, pcc) and torch.equal(ev, pev)
             fin = torch.isfinite(pev)
             if torch.equal(fin, torch.isfinite(ev)):
@@ -743,22 +785,31 @@ def main(argv=None):
             else:
                 same = False
             kept += int(pcc.sum())
-        log(f"zc events: {len(groups)} groups, e_cap {groups[0].e_cap}.."
-            f"{groups[-1].e_cap}, c_row {groups[0].c_row}..{groups[-1].c_row}"
-            f", {kept} kept events; kernel vs plain: counts and +inf "
-            f"positions equal {same}, max abs diff {zeerr} (tol 0, exact)")
+        log(f"zc events: {len(groups)} groups in {ev_launches} launch, e_cap "
+            f"{groups[0].e_cap}..{groups[-1].e_cap}, c_row {groups[0].c_row}"
+            f"..{groups[-1].c_row}, {kept} kept events; kernel vs plain: "
+            f"counts and +inf positions equal {same}, max abs diff {zeerr} "
+            f"(tol 0, exact)")
         if not same:
             raise AssertionError("zc events kernel disagrees with its plain "
                                  "version")
-        ze_ms = alone_ms(ze_seen, 20)
+        # a single-group call is the same kernel with a one-entry table
+        g5 = groups[len(groups) // 2]
+        ev1, cc1 = zc_kernel.zc_events_cuda(filt, g5.lo, g5.hi,
+                                            e_cap=g5.e_cap, c_row=g5.c_row)
+        pev, pcc = plains[len(groups) // 2]
+        if not (torch.equal(ev1, pev) and torch.equal(cc1, pcc)):
+            raise AssertionError("zc events: the single-group call disagrees "
+                                 "with its plain version")
+        ze_ms = alone_ms(ze_seen, 30)
         ze_call = median_ms(torch, lambda: zc_kernel.zc_events(filt, geo),
                             10)
         ze_plain = median_ms(torch, lambda: [zc_kernel.zc_events_plain(
             filt, g.lo, g.hi, e_cap=g.e_cap, c_row=g.c_row)
             for g in groups], 3)
-        log(f"zc split: events alone (phase 1, {len(groups)} launches) "
-            f"{ze_ms:.4f} ms beside the full zc kernel {z_ms:.4f} ms  "
-            f"[{card}]")
+        log(f"zc split: events alone (phase 1, {ev_launches} launch for "
+            f"{len(groups)} groups) {ze_ms:.4f} ms beside the full zc kernel "
+            f"{z_ms:.4f} ms  [{card}]")
         ze_bound = bound(nbytes(filt) + sum(nbytes(ev, cc)
                                             for ev, cc in evs),
                          6 * filt.numel())
@@ -768,6 +819,56 @@ def main(argv=None):
             launches_main=counts.get("wt_zc_events", 0),
             max_abs_err=zeerr, ms=ze_ms, call_ms=ze_call, plain_ms=ze_plain,
             bound=ze_bound, library_ms=None))
+        del plains
+        # the same kernel on the batch's audio as one utterance (the shape
+        # of phase 6's long Harvest: one row per band, fewer blocks than the
+        # card has slots); recorded, not tuned for
+        geo1 = H.HarvestGeometry(FS, int(lengths.sum()), f0_floor=40.0)
+        x1 = torch.cat([x[i, :int(n)] for i, n in enumerate(lengths)])[None]
+        filt1 = H.band_filter(H.decimate_stage(
+            x1, ratio=geo1.ratio, y_length=geo1.y_length), geo1)
+        _, ze1_seen = capture(_build,
+                              lambda: zc_kernel.zc_events(filt1, geo1))
+        ze1_ms = alone_ms(ze1_seen, 30)
+        log(f"zc events on one {x1.shape[1] / FS:.2f} s utterance (filt "
+            f"{tuple(filt1.shape)}, {filt1.shape[1]} blocks): {ze1_ms:.4f} ms "
+            f"device time alone  [{card}]")
+        del filt1, ze1_seen
+
+        if "zc_events.cu" in old_sources:
+            # the earlier zc events design (one call of two launches per
+            # band group): equal results, then device times alone in turns
+            n_cols = -(-L // 128)
+            old_seen, old_out = [], []
+            for g in groups:
+                oev = torch.empty((BATCH, g.n_bands, 4, g.e_cap),
+                                  dtype=torch.float32, device=dev)
+                occ = torch.empty((BATCH, g.n_bands, 4, n_cols),
+                                  dtype=torch.int32, device=dev)
+                old_out.append((oev, occ))
+                old_seen.append(("wt_zc_events", dev, (
+                    filt, oev, occ, BATCH * g.n_bands, filt.shape[1], g.lo,
+                    g.n_bands, L, g.e_cap, g.c_row, n_cols,
+                    -(-n_cols // 8) * 8)))
+            replayer(torch, _build, old, old_seen)()
+            torch.cuda.synchronize()
+            eq = all(torch.equal(a, c) and torch.equal(b, d)
+                     for (a, b), (c, d) in zip(old_out, evs))
+            ab = {"zc events old": [], "zc events new": []}
+            for turn in ("old", "new", "new", "old"):
+                if turn == "old":
+                    ab["zc events old"].append(alone_ms(old_seen, 30, old))
+                else:
+                    ab["zc events new"].append(alone_ms(ze_seen, 30))
+            log(f"baseline zc events ({len(old_seen)} calls of two launches) "
+                f"equal to the current (1 launch) in every group: {eq}; "
+                f"device time alone, in turns (old, new, new, old): "
+                + "; ".join(f"{k} {[round(v, 4) for v in vs]} ms"
+                            for k, vs in ab.items()) + f"  [{card}]")
+            if not eq:
+                raise AssertionError("the baseline zc events kernel "
+                                     "disagrees with the current one")
+            del old_seen, old_out
 
         # the contour chain and the main path with the plain walk (before
         # the extend kernel) and with the kernel, in turns in this process
@@ -928,6 +1029,241 @@ def main(argv=None):
                 f"samples at {fsc} Hz, rms {rms_c:.4f}")
             if fsc != fs22 or not np.isfinite(yc).all() or rms_c < 0.01:
                 raise AssertionError(f"cli output {path}")
+
+    # ---- 7. float64 on the card against the C++ golden dumps ----
+    import gzip
+    from worldtpu_torch.analysis import d4c as D4
+    from worldtpu_torch.analysis import dither as DI
+    from worldtpu_torch.io import params as P_, wav as W_
+    from worldtpu_torch.ops import seqsum
+    fixd = root / "tests" / "fixtures"
+    f64 = torch.float64
+    _build.launches.clear()
+    first22 = None
+    for nm in F64_FIXTURES:
+        xf, fsf, _ = W_.wavread(str(fixd / f"{nm}.wav"))
+        f0_ref, tpos_ref, fp_ms = P_.read_f0(str(fixd / f"{nm}.f0.gz"))
+        spec_ref, meta = P_.read_spectral_envelope(
+            str(fixd / f"{nm}.spec.gz"))
+        ap_ref, _ = P_.read_aperiodicity(str(fixd / f"{nm}.ap.gz"))
+        syn_ref = np.frombuffer(
+            gzip.open(fixd / f"{nm}.syn2.f64.gz").read(), "<f8")
+        fft_f = meta["fft_size"]
+        walls = {}
+
+        def timed(key, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls[key] = (time.perf_counter() - t0) * 1000
+            return out
+
+        har = api.Harvest(fsf, api.HarvestOption(f0_floor=40.0), device=dev)
+        har.compute(xf, dtype=f64)                  # first call: FFT plans
+        tpos_g, f0_g = timed("Harvest", lambda: har.compute(xf, dtype=f64))
+        same_v = bool(np.array_equal(f0_g > 0, f0_ref > 0))
+        f0_rmse = float(np.sqrt(np.mean((f0_g - f0_ref) ** 2)))
+        f0_max = float(np.abs(f0_g - f0_ref).max())
+
+        # the reference's dither streams, in its call order, from the port's
+        # own xorshift (host); the LoveTrain gate of the body dither on the
+        # card
+        ct = api.CheapTrick(fsf, device=dev)
+        ckf = ct._kernel
+        wd, sd, gen_x = DI.cheaptrick_dither(f0_ref, fsf, fft_f,
+                                             ckf.max_half_window)
+        spec_g = timed("CheapTrick", lambda: ct.compute(
+            xf, tpos_ref, f0_ref, dtype=f64, window_dither=wd,
+            spectrum_dither=sd))
+        lt, gen_x = DI.d4c_love_train_dither(
+            f0_ref, fsf, D4.d4c_max_half_lt(fsf), gen_x)
+        xt = torch.as_tensor(xf, dtype=f64, device=dev)[None]
+        f0t = torch.as_tensor(f0_ref, dtype=f64, device=dev)[None]
+        ap0 = D4.love_train_ap0(
+            xt, f0t, torch.as_tensor(tpos_ref, dtype=f64, device=dev),
+            fs=fsf, lt_dither=torch.as_tensor(lt, device=dev)[None])
+        active = (f0_ref != 0) & (ap0[0].cpu().numpy() > 0.85)
+        c1, c2, hd, gen_x = DI.d4c_body_dither(
+            f0_ref, active, fsf, D4.d4c_max_half_c(fsf), gen_x)
+        d4 = api.D4C(fsf, device=dev)
+        ap_g = timed("D4C", lambda: d4.compute(
+            xf, tpos_ref, f0_ref, fft_f, dtype=f64, lt_dither=lt,
+            c1_dither=c1, c2_dither=c2, h_dither=hd))
+        spec_rel = (np.abs(spec_g.cpu().numpy() - spec_ref)
+                    / (np.abs(spec_ref) + 1e-300))
+        ap_err = np.abs(ap_g.cpu().numpy() - ap_ref)
+
+        out_f = int((len(f0_ref) - 1) * fp_ms / 1000.0 * fsf) + 1
+        skw = dict(fs=fsf, fft_size=fft_f, frame_period_s=fp_ms / 1000.0,
+                   out_length=out_f,
+                   max_pulses=S.default_max_pulses(out_f, fsf))
+        nz = S.parity_noise(f0_ref, **skw)          # host, fresh stream
+        syn = api.Synthesis(fsf, fft_f, fp_ms, device=dev)
+        y_g = timed("Synthesis", lambda: syn.compute(
+            f0_ref, spec_ref, ap_ref, out_f, noise=nz, dtype=f64))
+        y_g = y_g.cpu().numpy()
+        syn_rel = float(np.abs(y_g - syn_ref).max() / np.abs(syn_ref).max())
+        figs = {"f0_rmse_hz": f0_rmse,
+                "spec_q999_rel": float(np.quantile(spec_rel, 0.999)),
+                "ap_q999_abs": float(np.quantile(ap_err, 0.999)),
+                "syn_max_rel": syn_rel}
+        log(f"float64 on the card, {nm} ({len(xf) / fsf:.2f} s at {fsf} Hz, "
+            f"fft {fft_f}, {len(f0_ref)} frames) vs the C++ dumps: F0 "
+            f"voicing identical {same_v}, max |dF0| {f0_max:.3e} Hz, spec "
+            f"max rel {float(spec_rel.max()):.3e}, ap max abs "
+            f"{float(ap_err.max()):.3e}; "
+            + "; ".join(f"{k} {v:.3e} (gate {F64_GATES[k][0]:g}, CPU tests "
+                        f"{F64_GATES[k][1]:g})" for k, v in figs.items()))
+        log(f"float64 entry points' walls, {nm}: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
+            + f"  [{card}]")
+        if (not same_v or not np.allclose(tpos_g, tpos_ref, rtol=1e-12)
+                or any(not v < F64_GATES[k][0] for k, v in figs.items())):
+            raise AssertionError(f"float64 on the card disagrees with the "
+                                 f"C++ dumps on {nm}")
+        if nm == "t22":
+            first22 = dict(f0=f0_ref, spec=spec_ref, ap=ap_ref, nz=nz,
+                           skw=skw, fs=fsf)
+    f64_counts = dict(_build.launches)
+    log(f"float64 path launches (Harvest, CheapTrick, D4C and Synthesis on "
+        f"{len(F64_FIXTURES)} utterances, counted from 0): {f64_counts}")
+    for k in ("wt_ola_f64", "wt_seq_cumsum_f64"):
+        if f64_counts.get(k, 0) < 1:
+            raise AssertionError(f"kernel {k} not launched by the float64 "
+                                 f"path")
+    if any(k in f64_counts for k in ("wt_zc", "wt_refine_sums", "wt_ola",
+                                     "wt_extend")):
+        raise AssertionError("the float64 path launched a float32 kernel")
+
+    # the float64 path's two kernels at t22's shapes against their plain
+    # versions
+    with torch.no_grad():
+        q = first22
+        as64 = lambda a: torch.as_tensor(a, dtype=f64, device=dev)[None]
+        resp64, st64, np64, _ = S.pulse_train(
+            as64(q["f0"]), as64(q["spec"]), as64(q["ap"]), as64(q["nz"]),
+            **q["skw"])
+        T64 = q["skw"]["out_length"]
+        ok64, o64_seen = capture(_build, lambda: ola_kernel.overlap_add_cuda(
+            resp64, st64, T64, np64))
+        op64 = ola_kernel.overlap_add_plain(resp64, st64, T64, np64)
+        o64_err = float((ok64 - op64).abs().max())
+        o64_scale = float(op64.abs().max())
+        again = ola_kernel.overlap_add_cuda(resp64, st64, T64, np64)
+        log(f"ola float64 (the OLA kernel's double instantiation): resp "
+            f"{tuple(resp64.shape)} -> {tuple(ok64.shape)}; max abs err vs "
+            f"index_add_ {o64_err:.3e} of max |y| {o64_scale:.3e} (tol "
+            f"{OLA_F64_REL} relative); two runs equal bit for bit "
+            f"{torch.equal(ok64, again)}")
+        if o64_err > OLA_F64_REL * o64_scale or not torch.equal(ok64, again):
+            raise AssertionError("the float64 OLA kernel disagrees with its "
+                                 "plain version")
+        real64 = int(np64.sum())
+        j64 = torch.arange(resp64.shape[2], device=dev)
+        tg64 = st64.to(torch.int64)[..., None] + j64
+        okm = ((tg64 >= 0) & (tg64 < T64)
+               & (torch.arange(resp64.shape[1], device=dev)
+                  < np64[:, None])[..., None])
+        flat_t = torch.where(okm, tg64, T64).reshape(-1)
+        flat_v = torch.where(okm, resp64, 0.0).reshape(-1)
+        acc = torch.zeros(T64 + 1, dtype=f64, device=dev)
+        results.append(dict(
+            name="ola_f64", source="worldtpu_torch/csrc/ola.cu",
+            replaces="worldtpu/ops/ola_kernel.py:51",
+            launches=f64_counts["wt_ola_f64"],
+            launches_main=counts.get("wt_ola_f64", 0), max_abs_err=o64_err,
+            ms=alone_ms(o64_seen, 100),
+            call_ms=median_ms(torch, lambda: ola_kernel.overlap_add_cuda(
+                resp64, st64, T64, np64), 20),
+            plain_ms=median_ms(torch, lambda: ola_kernel.overlap_add_plain(
+                resp64, st64, T64, np64), 5),
+            bound=bound(real64 * resp64.shape[2] * 8 + nbytes(st64, ok64),
+                        real64 * resp64.shape[2] * PEAK_F32_FLOP_S
+                        / PEAK_F64_FLOP_S),
+            library_ms=device_ms(torch, cycles_per_ms,
+                                 lambda: acc.index_add_(0, flat_t, flat_v),
+                                 20)))
+        del tg64, okm, flat_t, flat_v, acc
+
+        # the sequential cumulative sum at its two shapes on this path: the
+        # time base's one long row, and LinearSmoothing's mirrored spectra
+        # (one row per frame)
+        rng = np.random.RandomState(5)
+        F22 = len(q["f0"])
+        c_worst = 0.0
+        for shape in ((1, T64), (F22, 2049 + 2 * 60)):
+            xs = rng.randn(*shape) * 10.0 ** rng.uniform(-6, 6, shape)
+            got = seqsum.cumsum_sequential_cuda(
+                torch.as_tensor(xs, device=dev)).cpu().numpy()
+            want = np.cumsum(xs, axis=-1)
+            c_worst = max(c_worst, float(np.abs(got - want).max()))
+            par = torch.cumsum(torch.as_tensor(xs, device=dev), -1)
+            log(f"seq_cumsum {shape}: equal to numpy.cumsum "
+                f"{bool(np.array_equal(got, want))}; torch.cumsum on the "
+                f"card (a parallel scan) equal to it "
+                f"{bool(np.array_equal(par.cpu().numpy(), want))}")
+            if not np.array_equal(got, want):
+                raise AssertionError("the sequential cumulative sum "
+                                     "disagrees with numpy.cumsum")
+        xs_t = torch.as_tensor(xs, device=dev)
+        _, c_seen = capture(_build,
+                            lambda: seqsum.cumsum_sequential_cuda(xs_t))
+        row_t = torch.as_tensor(rng.randn(1, T64), device=dev)
+        _, row_seen = capture(_build,
+                              lambda: seqsum.cumsum_sequential_cuda(row_t))
+        log(f"seq_cumsum on the time base's one row {tuple(row_t.shape)} "
+            f"(a single thread's chain): {alone_ms(row_seen, 20):.4f} ms "
+            f"device time alone; the kernels line times the "
+            f"{tuple(xs_t.shape)} rows of LinearSmoothing  [{card}]")
+        results.append(dict(
+            name="seq_cumsum", source="worldtpu_torch/csrc/seq_cumsum.cu",
+            replaces="worldtpu/ops/filters.py:373",
+            launches=f64_counts["wt_seq_cumsum_f64"],
+            launches_main=counts.get("wt_seq_cumsum_f64", 0),
+            max_abs_err=c_worst, ms=alone_ms(c_seen, 50),
+            call_ms=median_ms(
+                torch, lambda: seqsum.cumsum_sequential_cuda(xs_t), 20),
+            plain_ms=median_ms(
+                torch, lambda: seqsum.cumsum_sequential_plain(xs_t), 5),
+            bound=bound(2 * nbytes(xs_t), xs_t.numel() * PEAK_F32_FLOP_S
+                        / PEAK_F64_FLOP_S),
+            library_ms=device_ms(torch, cycles_per_ms,
+                                 lambda: torch.cumsum(xs_t, -1), 50)))
+    for r in results[-2:]:
+        b_ms, b_by = r["bound"]
+        log(f"{r['name']}: kernel alone {r['ms']:.4f} ms (with its wrapper "
+            f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), share {b_ms / r['ms']:.3f}, library "
+            f"{r['library_ms']:.4f} ms; launches on the float64 path "
+            f"{r['launches']}  [{card}]")
+
+    # the CLI without --f32 (float64, the JAX CLI's default) on the card
+    with tempfile.TemporaryDirectory() as td:
+        pre, syn_w = (str(pathlib.Path(td) / n) for n in ("p64", "y64.wav"))
+        for args in (["analyze", fx, pre], ["synthesize", pre, syn_w]):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-c", CLI_NO_JAX, *args,
+                                "--device", "cuda"], cwd=root,
+                               capture_output=True, text=True, timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(f"cli {args[0]} (float64) exited "
+                                     f"{r.returncode}:\n{r.stdout[-2000:]}\n"
+                                     f"{r.stderr[-2000:]}")
+            log(f"cli {args[0]} without --f32 (float64): rc 0 in "
+                f"{time.perf_counter() - t0:.1f} s (jax and worldtpu "
+                f"blocked)")
+        f0_c, _, _ = P_.read_f0(pre + ".f0")
+        f0_22, _, _ = P_.read_f0(str(fixd / "t22.f0.gz"))
+        yc, fsc = read_wav(syn_w)
+        rms_c = float(np.sqrt(np.mean(yc ** 2)))
+        d_cli = float(np.abs(f0_c - f0_22).max())
+        log(f"cli float64: F0 max |d| vs t22.f0.gz {d_cli:.3e} Hz (gate "
+            f"{F64_GATES['f0_rmse_hz'][0]:g}); output {yc.shape[0]} samples "
+            f"at {fsc} Hz, rms {rms_c:.4f}")
+        if (not d_cli < F64_GATES["f0_rmse_hz"][0] or fsc != fs22
+                or not np.isfinite(yc).all() or rms_c < 0.01):
+            raise AssertionError("cli float64 output")
 
     jaxy = [m for m in sys.modules
             if m in ("jax", "worldtpu") or m.startswith(("jax.", "worldtpu."))]

@@ -15,6 +15,7 @@ from worldtpu_torch.analysis.cheaptrick import CheapTrickKernel
 from worldtpu_torch.ops import extend_kernel as TE
 from worldtpu_torch.ops import ola_kernel as TO
 from worldtpu_torch.ops import refine_kernel as TR
+from worldtpu_torch.ops import seqsum as TQ
 from worldtpu_torch.ops import zc_kernel as TZ
 from worldtpu_torch.parallel import batch as TB
 from worldtpu_torch.synthesis import synthesis as TS
@@ -141,13 +142,21 @@ def test_ola_kernel_count_cuts_pulses(dev):
 
 
 def test_cuda_wrapper_checks(dev):
-    resp = torch.zeros((1, 2, 128), device=dev, dtype=torch.float64)
+    resp = torch.zeros((1, 2, 128), device=dev, dtype=torch.float16)
     starts = torch.zeros((1, 2), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="float32 or float64"):
         TO.overlap_add(resp, starts, 100)
     with pytest.raises(ValueError, match="n_pulses"):
         TO.overlap_add(resp.float(), starts, 100,
                        torch.ones(1, dtype=torch.int32, device=dev))
+    filt = torch.zeros((1, 4, 300), device=dev)
+    with pytest.raises(ValueError, match="c_row"):
+        TZ.zc_events_cuda(filt, 0, 2, e_cap=8, c_row=16)
+    with pytest.raises(ValueError, match="band range"):
+        TZ.zc_events_cuda(filt, 2, 5, e_cap=128, c_row=8)
+    with pytest.raises(ValueError, match="band groups"):
+        TZ.zc_events_groups(filt, [(0, 1, 128, 8)]
+                            * (TZ.MAX_EVENT_GROUPS + 1))
     cand = torch.zeros((1, 4, TE.MAX_SLOTS + 1), device=dev)
     w = torch.zeros((1, 1), dtype=torch.int64, device=dev)
     with pytest.raises(ValueError, match="candidate slots"):
@@ -348,12 +357,163 @@ def test_zc_events_kernel_matches_plain(stage_inputs):
     groups = TZ.make_groups(geo)
     n0 = _build.launches["wt_zc_events"]
     outs = TZ.zc_events(filt, geo)
-    assert _build.launches["wt_zc_events"] == n0 + len(groups)
+    assert _build.launches["wt_zc_events"] == n0 + 1   # all groups at once
     for g, (ev, ccol) in zip(groups, outs):
         pev, pccol = TZ.zc_events_plain(filt, g.lo, g.hi, e_cap=g.e_cap,
                                         c_row=g.c_row)
         assert torch.equal(ccol, pccol)
         assert torch.equal(ev, pev)
+
+
+def _assert_events_equal_plain(filt, specs, outs):
+    assert len(outs) == len(specs)
+    for (lo, hi, e_cap, c_row), (ev, ccol) in zip(specs, outs):
+        pev, pccol = TZ.zc_events_plain(filt, lo, hi, e_cap=e_cap,
+                                        c_row=c_row)
+        assert torch.equal(ccol, pccol)
+        assert torch.equal(ev, pev)
+    return pev, pccol
+
+
+@pytest.mark.parametrize("L", [
+    128 * 40,            # whole columns, n_cols a multiple of 8: no pad column
+    128 * 37 + 1,        # n_cols 38 not a multiple of 8, one sample in the last
+    2048 * 3 + 700,      # not a multiple of the block's 2,048-sample chunk
+    70003,               # many chunks
+    131,                 # shorter than one chunk
+])
+def test_zc_events_kernel_edges_exact(dev, L):
+    """The one-launch kernel at its edges, bit-exact against the plain
+    version: a group whose offsets clamp at e_cap - c_row (the fast tone
+    and the noise rows overrun it), columns with more than c_row events,
+    n_cols not a multiple of 8 (pad store columns), L not a multiple of
+    the chunk, groups of different e_cap and c_row in one launch, and
+    bands that no group covers."""
+    rows = _zc_rows(L)                                   # [1, 7, L]
+    filt = torch.tensor(np.concatenate([rows, 0.5 * rows[:, ::-1]], 0),
+                        device=dev)                      # B=2
+    specs = [(0, 2, 128, 8), (2, 5, 256, 16), (5, 6, 64, 64),
+             (6, 7, 2048, 24)]
+    n0 = _build.launches["wt_zc_events"]
+    outs = TZ.zc_events_groups(filt, specs)
+    assert _build.launches["wt_zc_events"] == n0 + 1
+    _assert_events_equal_plain(filt, specs, outs)
+    if L >= 128 * 37:
+        # the fast tone (band 5): every column past c_row... and the clamp
+        ev, ccol = TZ.zc_events_cuda(filt, 4, 6, e_cap=64, c_row=8)
+        assert int(ccol.max()) == 8 and int(ccol[0, 1, 0].sum()) > 64 - 8
+        pev, pccol = TZ.zc_events_plain(filt, 4, 6, e_cap=64, c_row=8)
+        assert torch.equal(ev, pev) and torch.equal(ccol, pccol)
+
+
+def test_zc_events_kernel_single_group_and_subset(dev, stage_inputs):
+    """A single-group call and a launch over some of the groups return what
+    the all-groups launch returns for them."""
+    _, geo, y = stage_inputs
+    filt = TH.band_filter(y, geo)
+    groups = TZ.make_groups(geo)
+    specs = [(g.lo, g.hi, g.e_cap, g.c_row) for g in groups]
+    every = TZ.zc_events(filt, geo)
+    n0 = _build.launches["wt_zc_events"]
+    ev, ccol = TZ.zc_events_cuda(filt, *specs[3][:2], e_cap=specs[3][2],
+                                 c_row=specs[3][3])
+    some = TZ.zc_events_groups(filt, specs[7:] + specs[:2])
+    assert _build.launches["wt_zc_events"] == n0 + 2
+    assert torch.equal(ev, every[3][0]) and torch.equal(ccol, every[3][1])
+    for got, want in zip(some, every[7:] + every[:2]):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("with_count", [False, True])
+def test_ola_kernel_float64_matches_plain(dev, with_count):
+    """The OLA kernel's double instantiation on the padded-tail layout: it
+    adds in pulse order, index_add_ in any order, so they agree to rounding
+    (1e-12 relative to the largest output), and two kernel runs are equal
+    bit for bit."""
+    resp, starts, n = ola_padded_tail(4)
+    resp = torch.tensor(resp.astype(np.float64) * (1 + 1e-9), device=dev)
+    starts, n = torch.tensor(starts, device=dev), torch.tensor(n, device=dev)
+    T = 40000
+    cnt = n if with_count else None
+    n0 = _build.launches["wt_ola_f64"]
+    k = TO.overlap_add(resp, starts, T, cnt)
+    assert _build.launches["wt_ola_f64"] == n0 + 1
+    assert k.dtype == torch.float64
+    p = TO.overlap_add_plain(resp, starts, T, cnt)
+    assert float((k - p).abs().max()) <= 1e-12 * float(p.abs().max())
+    assert torch.equal(k, TO.overlap_add(resp, starts, T, cnt))
+    # in pulse order: a sequential numpy sum of one output sample
+    b, t = 0, 20000
+    st = starts[b].cpu().numpy()
+    rn = resp[b].cpu().numpy()
+    acc = 0.0
+    for q in range(int(n[b])):
+        j = t - int(st[q])
+        if 0 <= j < rn.shape[1]:
+            acc += rn[q, j]
+    assert float(k[b, t]) == acc
+
+
+@pytest.mark.parametrize("shape", [(1, 50001), (141, 2169), (3, 7, 65),
+                                   (70, 1)])
+def test_seq_cumsum_kernel_exact(dev, shape):
+    """The sequential cumulative sum on the card equals numpy.cumsum (in
+    order, one rounding a step) bit for bit, on data whose reassociated sum
+    differs."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(*shape) * 10.0 ** rng.uniform(-8, 8, shape)
+    n0 = _build.launches["wt_seq_cumsum_f64"]
+    got = TQ.cumsum_sequential(torch.tensor(x, device=dev))
+    assert _build.launches["wt_seq_cumsum_f64"] == n0 + 1
+    assert got.shape == x.shape and got.dtype == torch.float64
+    np.testing.assert_array_equal(got.cpu().numpy(), np.cumsum(x, axis=-1))
+    # a strided view is summed as its contiguous copy
+    xt = torch.tensor(x, device=dev)
+    if xt.dim() == 2 and xt.shape[0] > 1:
+        np.testing.assert_array_equal(
+            TQ.cumsum_sequential(xt[::2]).cpu().numpy(),
+            np.cumsum(x[::2], axis=-1))
+    with pytest.raises(ValueError, match="float64"):
+        TQ.cumsum_sequential(xt.float())
+
+
+def test_f64_path_on_card_matches_cpu(dev):
+    """The float64 parity path on the card against the same path on the
+    CPU (other FFT library, the two float64 kernels in place of numpy and
+    index_add_) on a vowel: voicing identical, F0 within 1e-6 Hz,
+    spectrogram 1e-9 relative, aperiodicity 1e-8, and a synthesis from
+    the same float64 noise within 1e-10 of full scale."""
+    fs = 16000
+    x = _vowels(fs, 1, dur=0.5)[0].astype(np.float64)
+    out = {}
+    _build.launches.clear()
+    for d in ("cpu", dev):
+        har = api.Harvest(fs, api.HarvestOption(f0_floor=40.0), device=d)
+        tpos, f0 = har.compute(x, dtype=torch.float64)
+        ct = api.CheapTrick(fs, device=d)
+        sp = ct.compute(x, tpos, f0, dtype=torch.float64)
+        ap = api.D4C(fs, device=d).compute(x, tpos, f0, ct.fft_size,
+                                           dtype=torch.float64)
+        out[str(d)] = (f0, sp.cpu().numpy(), ap.cpu().numpy())
+    # both devices synthesize the CPU's parameters with the same noise
+    f0, sp, ap = out["cpu"]
+    T = int((len(f0) - 1) * 0.005 * fs) + 1
+    mp = TS.default_max_pulses(T, fs)
+    noise = np.random.RandomState(1).randn(mp, ct.fft_size)
+    yc, yg = (api.Synthesis(fs, ct.fft_size, 5.0, device=d).compute(
+        f0, sp, ap, T, noise=noise, dtype=torch.float64).cpu().numpy()
+        for d in ("cpu", dev))
+    assert _build.launches["wt_ola_f64"] == 1
+    assert _build.launches["wt_seq_cumsum_f64"] >= 5
+    assert not any(_build.launches[k] for k in ("wt_zc", "wt_refine_sums",
+                                                 "wt_ola", "wt_extend"))
+    (f0c, spc, apc), (f0g, spg, apg) = out["cpu"], out[str(dev)]
+    np.testing.assert_array_equal(f0c > 0, f0g > 0)
+    assert (f0c > 0).mean() > 0.3
+    np.testing.assert_allclose(f0g, f0c, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(spg, spc, rtol=1e-9)
+    np.testing.assert_allclose(apg, apc, rtol=0, atol=1e-8)
+    assert np.abs(yg - yc).max() < 1e-10 * np.abs(yc).max()
 
 
 def test_world_copy_synthesis_launches_extend(dev):

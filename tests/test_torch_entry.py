@@ -200,15 +200,83 @@ def test_world_copy_synthesis_regrow(monkeypatch):
     assert np.isfinite(y).all() and np.sqrt(np.mean(y ** 2)) > 0.01
 
 
-def test_f64_raises():
-    x, fs = _t22()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        api.Harvest(fs, device="cpu").compute(x, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        api.World(fs, device="cpu").copy_synthesis(x, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tcli.main(["analyze", str(FIXTURES / "t22.wav"), "unused",
-                   "--device", "cpu"])
+def test_f64_raises(tmp_path):
+    """The three entry points that raised NotImplementedError for float64
+    while it was not ported now run the parity path (case for case: the
+    Harvest facade, World.copy_synthesis, the CLI without --f32); what
+    still raises is a dtype that is neither float32 nor float64."""
+    f = load_fixture("t22")
+    x, fs = f.x, f.fs
+    # the Harvest facade against the C++ F0 dump (tests/test_harvest.py's
+    # tolerances) and JAX's facade, whose default dtype this is
+    tpos, f0 = api.Harvest(fs, api.HarvestOption(f0_floor=40.0),
+                           device="cpu").compute(x, dtype=torch.float64)
+    err = np.abs(f0 - f.f0)
+    assert np.sqrt(np.mean(err ** 2)) < 1e-6 and err.max() < 1e-4
+    jt, jf0 = japi.Harvest(fs, japi.HarvestOption(f0_floor=40.0)).compute(x)
+    np.testing.assert_array_equal(tpos, jt)
+    np.testing.assert_array_equal(f0 > 0, jf0 > 0)
+    np.testing.assert_allclose(f0, jf0, rtol=0, atol=1e-8)
+    # World.copy_synthesis: float64 out, the Harvest facade's F0 scaled
+    world = api.World(fs, f0_floor=40.0, device="cpu")
+    y, f0w = world.copy_synthesis(x, pitch_scale=1.2, dtype=torch.float64,
+                                  seed=3)
+    assert y.dtype == f0w.dtype == np.float64
+    np.testing.assert_array_equal(f0w, f0 * 1.2)
+    assert np.isfinite(y).all() and 0.01 < np.sqrt(np.mean(y ** 2)) < 1.0
+    y2, _ = world.copy_synthesis(x, pitch_scale=1.2, dtype=torch.float64,
+                                 seed=3)
+    np.testing.assert_array_equal(y, y2)
+    # the CLI without --f32 runs float64, as worldtpu.cli does
+    pre = str(tmp_path / "p")
+    assert tcli.main(["analyze", str(FIXTURES / "t22.wav"), pre,
+                      "--device", "cpu"]) == 0
+    f0c, _, _ = params.read_f0(pre + ".f0")
+    np.testing.assert_array_equal(f0c, f0)
+    for bad in (torch.float16, torch.int32):
+        with pytest.raises(ValueError, match="float32 or"):
+            api.Harvest(fs, device="cpu").compute(x, dtype=bad)
+        with pytest.raises(ValueError, match="float32 or"):
+            api.World(fs, device="cpu").copy_synthesis(x, dtype=bad)
+
+
+def test_cli_f64_roundtrip_without_jax(tmp_path):
+    """analyze and synthesize without --f32 (float64, the JAX CLI's
+    default), --device cpu, in processes where ``jax`` and ``worldtpu``
+    cannot be imported: the parameter files hold the float64 analysis
+    (spectrogram and aperiodicity within the undithered tolerances of the
+    C++ dumps, q99.9 < 1e-6), and the waveform is audible."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['worldtpu'] = None\n"
+            "runpy.run_module('worldtpu_torch.cli', run_name='__main__', "
+            "alter_sys=True)\n")
+
+    def cli(*args):
+        return subprocess.run(
+            [sys.executable, "-c", code, *args, "--device", "cpu"], cwd=REPO,
+            capture_output=True, text=True, timeout=600,
+            env={"PATH": "/usr/bin:/bin:/usr/local/bin",
+                 "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"})
+
+    f = load_fixture("t22")
+    pre = str(tmp_path / "p")
+    r = cli("analyze", str(FIXTURES / "t22.wav"), pre)
+    assert r.returncode == 0, r.stderr[-2000:]
+    f0, _, fp = params.read_f0(pre + ".f0")
+    spec, meta = params.read_spectral_envelope(pre + ".spec")
+    ap, _ = params.read_aperiodicity(pre + ".ap")
+    assert fp == 5.0 and meta["fft_size"] == f.fft_size
+    assert np.abs(f0 - f.f0).max() < 1e-4
+    rel = np.abs(spec - f.spec) / (np.abs(f.spec) + 1e-20)
+    assert np.quantile(rel, 0.999) < 1e-6
+    assert np.quantile(np.abs(ap - f.ap), 0.999) < 1e-6
+    out = str(tmp_path / "y.wav")
+    r = cli("synthesize", pre, out, "--f0-scale", "1.1")
+    assert r.returncode == 0, r.stderr[-2000:]
+    y, fs, _ = wav.wavread(out)
+    assert fs == f.fs and np.isfinite(y).all()
+    assert 0.01 < np.sqrt(np.mean(y ** 2)) < 1.0
 
 
 def _run(args, code=None):

@@ -363,6 +363,28 @@ def test_zc_events_cuda_checks_inputs():
                           c_row=8)
 
 
+def test_zc_events_groups_one_entry_for_all_groups():
+    """The one-call entry (on the card one launch for every group) returns
+    per group what a single-group call returns, for the geometry's groups
+    in any order and for a subset; ``zc_events`` is that entry on
+    ``make_groups``.  (Every group is held to the Pallas kernel in
+    interpret mode above, through ``zc_events``.)"""
+    geo, filt, outs = _events_case("vowel")
+    tgeo = convert.geometry_from_worldtpu(vars(geo))
+    ft = torch.tensor(filt)[None]
+    groups = TZ.make_groups(tgeo)
+    specs = [(g.lo, g.hi, g.e_cap, g.c_row) for g in groups]
+    assert len(outs) == len(specs) == TZ.N_GROUPS <= TZ.MAX_EVENT_GROUPS
+    some = TZ.zc_events_groups(ft, specs[6:] + specs[:2])
+    for (ev, ccol), (lo, hi, e_cap, c_row), want in zip(
+            some, specs[6:] + specs[:2], outs[6:] + outs[:2]):
+        assert ev.shape == (1, hi - lo, 4, e_cap)
+        assert torch.equal(ev, want[0]) and torch.equal(ccol, want[1])
+        pev, pcc = TZ.zc_events_plain(ft, lo, hi, e_cap=e_cap, c_row=c_row)
+        assert torch.equal(ev, pev) and torch.equal(ccol, pcc)
+    assert TZ.zc_events_groups(ft, []) == []
+
+
 def test_zc_layout_by_e_max():
     """wt_zc keeps a row's events in shared memory up to the byte limit,
     past it in a device scratch; chip_smoke.py's B=8 geometry (e_max

@@ -1,5 +1,7 @@
-"""worldtpu_torch — the WORLD vocoder's f32 production path in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""worldtpu_torch — the WORLD vocoder in PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper (sm_90a): the float32 production path and the
+float64 parity path (``dtype=torch.float64`` on any entry point: the
+reference's literal semantics, held to its golden dumps).
 
 A port of the JAX package ``worldtpu`` (which stays the reference): B padded
 wavs -> Harvest F0 (with the on-device contour chain) -> pitch scale ->
@@ -12,7 +14,7 @@ and the CLI ``python -m worldtpu_torch.cli``.
 
 Layout mirrors ``worldtpu``: ``ops/`` (DSP primitives and the kernel
 wrappers ``zc_kernel``, ``refine_kernel``, ``ola_kernel``,
-``extend_kernel``), ``analysis/``, ``synthesis/``, ``parallel/``, with the
+``extend_kernel``, ``seqsum``), ``analysis/``, ``synthesis/``, ``parallel/``, with the
 CUDA sources in ``csrc/`` and their build in ``_build``.  A kernel wrapper
 given CPU tensors runs its plain PyTorch version; given CUDA tensors it
 launches the kernel or raises.
@@ -21,9 +23,10 @@ Importing the package sets float32 matmuls and cuDNN convolutions to full
 f32 (no TF32): the reference is true f32, and TF32 keeps ~3 digits.
 The package imports neither JAX nor anything of ``worldtpu``: it keeps its
 own copies of the numpy-only modules it needs (``io.wav``, ``io.params``,
-``metrics``, ``analysis.contour``) and of the contour's C smoothing helper
-(``native``, ``csrc/filter_f0.c``), held equal to ``worldtpu``'s by the
-tests.
+``metrics``, ``analysis.contour``, ``analysis.dither``) and of its C
+helpers (``native``: the contour's smoother ``csrc/filter_f0.c``, the
+reference's randn() stream and int-truncating sum ``csrc/parity.c``), held
+equal to ``worldtpu``'s by the tests.
 """
 
 import torch

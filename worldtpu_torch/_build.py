@@ -68,12 +68,15 @@ _SIGNATURES = {
     "wt_refine_sums": (_P,) * 8 + (_I,) * 5 + (_P,),
     # resp, starts, n_pulses (or NULL), out, B, P, fft, T, stream
     "wt_ola": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "wt_ola_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, out, n_rows, n, stream
+    "wt_seq_cumsum_f64": (_P, _P, _I, _I, _P),
     # cand, score, origin, shift, live, distance, tmp0, vals, scs, n_on, so,
     # B, W, F, S, E, miss_lim, allowed_range, stream
     "wt_extend": (_P,) * 11 + (_I,) * 6 + (_F, _P),
-    # filt, ev, ccol, n_rows, nb, lo, nb_g, L, e_cap, c_row, n_cols,
-    # n_store, stream
-    "wt_zc_events": (_P, _P, _P) + (_I,) * 9 + (_P,),
+    # filt, ev, ccol, table (host: lo, nb_g, e_cap, c_row, ev_off, ccol_off
+    # per group), n_groups, B, nb, L, n_cols, n_store, stream
+    "wt_zc_events": (_P, _P, _P, _P) + (_I,) * 6 + (_P,),
 }
 
 

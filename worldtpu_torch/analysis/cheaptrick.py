@@ -1,10 +1,13 @@
-"""CheapTrick spectral envelope, f32 production path, batched over
-utterances and frames.
+"""CheapTrick spectral envelope, batched over utterances and frames.
 
 Port of worldtpu/analysis/cheaptrick.py (reference src/cheaptrick.cpp):
 F0-adaptive Hanning window -> power spectrum -> DC correction -> linear
 smoothing -> cepstral liftering -> exp, two batched real FFTs in all.
 Windows are padded to the f0-floor worst case with zero weights.
+float32 is the production path (seeded-and-rotated trigonometry, the
+low-bin DC correction, the convolution form of the smoothing, a clamp
+before the log); float64 is the parity path with the reference's literal
+arithmetic and its optional randn() dither hooks.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ def frame_segments(x, origin, half):
 
 
 def cheaptrick_frames(x, f0, temporal_positions, *, fs, fft_size,
-                      max_half_window, q1=-0.15, f0_floor=None):
+                      max_half_window, q1=-0.15, f0_floor=None,
+                      window_dither=None, spectrum_dither=None):
     """Spectral envelope for all frames.
 
     Args:
@@ -38,6 +42,11 @@ def cheaptrick_frames(x, f0, temporal_positions, *, fs, fft_size,
         max_half_window: bound round(1.5*fs/effective_floor).
         f0_floor: effective floor (f0 <= floor uses kDefaultF0); defaults to
             getF0FloorForCheapTrick(fs, fft_size).
+        window_dither: optional [B, F, 2*max_half_window+1] parity dither
+            added to the windowed waveform (the reference's randn()*1e-15;
+            ``analysis.dither.cheaptrick_dither``).
+        spectrum_dither: optional [B, F, K] parity noise floor
+            (|randn()| * kEps); without it a constant kEps floor is added.
 
     Returns:
         [B, F, K] power envelope, K = fft_size//2 + 1.
@@ -59,15 +68,24 @@ def cheaptrick_frames(x, f0, temporal_positions, *, fs, fft_size,
     offs = torch.arange(W, device=dev) - max_half_window
     in_win = torch.abs(offs) <= half[..., None]               # [B, F, W]
     origin = matlab_round(temporal_positions.to(dt) * fs + 0.001)
-    seg = frame_segments(x, origin, max_half_window)
-
-    alpha = (C.PI / 1.5 / fs) * cf0
-    win = 0.5 * trig.cos_affine(alpha, -alpha * max_half_window, W) + 0.5
+    f64 = dt == torch.float64
+    if f64:      # parity path: the literal clipped gather and window
+        seg = x[:, (origin[:, None] + offs).clamp(0, x.shape[-1] - 1).long()]
+        position = offs.to(dt) / 1.5 / fs
+        win = 0.5 * torch.cos(C.PI * position * cf0[..., None]) + 0.5
+    else:
+        # an origin past the last sample is clamped first (a frame there
+        # reads a constant segment), as the JAX float32 path does
+        seg = frame_segments(x, origin, max_half_window)
+        alpha = (C.PI / 1.5 / fs) * cf0
+        win = 0.5 * trig.cos_affine(alpha, -alpha * max_half_window, W) + 0.5
     zero = torch.zeros((), dtype=dt, device=dev)
     win = torch.where(in_win, win, zero)
     win = win / torch.sqrt(torch.sum(win * win, -1, keepdim=True))
 
     wave = seg * win
+    if window_dither is not None:
+        wave = wave + torch.where(in_win, window_dither.to(dt), zero)
     weight = torch.sum(wave, -1, keepdim=True) / torch.sum(win, -1,
                                                            keepdim=True)
     wave = torch.where(in_win, wave - win * weight, zero)
@@ -83,21 +101,31 @@ def cheaptrick_frames(x, f0, temporal_positions, *, fs, fft_size,
     max_b = int(2.0 * 1.2 * C.CEIL_F0 / 3.0 * fft_size / fs) + 2
     power = filters.linear_smoothing_frames(power, cf0_rows * 2.0 / 3.0, fs,
                                             fft_size, max_b)
-    # f32 smoothing can leave tiny negative residuals; clamp before the log
-    power = torch.clamp(power, min=0.0) + C.EPS
+    if not f64:
+        # f32 smoothing can leave tiny negative residuals; clamp before the
+        # log (the float64 path matches the reference instead)
+        power = torch.clamp(power, min=0.0)
     power = power.reshape(B, F, K)
+    if spectrum_dither is not None:
+        power = power + torch.abs(spectrum_dither.to(dt)) * C.EPS
+    else:
+        power = power + C.EPS
 
     # ---- cepstral liftering with recovery ----
     i = torch.arange(K, dtype=dt, device=dev)
     quef = i / fs
     pfq = C.PI * cf0[..., None] * quef
-    # sin via the cos seed shifted -pi/2; cos(2x) = 1 - 2 sin(x)^2
-    alpha_q = C.PI * cf0 / fs
-    sin_pf = trig.cos_affine(alpha_q, torch.full_like(alpha_q, -0.5 * C.PI),
-                             K)
-    smoothing = torch.where(i == 0, torch.ones((), dtype=dt, device=dev),
-                            sin_pf / pfq)
-    cos2 = 1.0 - 2.0 * sin_pf * sin_pf
+    one = torch.ones((), dtype=dt, device=dev)
+    if f64:
+        smoothing = torch.where(i == 0, one, torch.sin(pfq) / pfq)
+        cos2 = torch.cos(2.0 * pfq)
+    else:
+        # sin via the cos seed shifted -pi/2; cos(2x) = 1 - 2 sin(x)^2
+        alpha_q = C.PI * cf0 / fs
+        sin_pf = trig.cos_affine(alpha_q,
+                                 torch.full_like(alpha_q, -0.5 * C.PI), K)
+        smoothing = torch.where(i == 0, one, sin_pf / pfq)
+        cos2 = 1.0 - 2.0 * sin_pf * sin_pf
     compensation = (1.0 - 2.0 * q1) + 2.0 * q1 * cos2
     lifter = smoothing * compensation
 
@@ -119,8 +147,8 @@ class CheapTrickKernel(torch.nn.Module):
         self.q1 = q1
         self.max_half_window = int(1.5 * fs / self.f0_floor + 0.5)
 
-    def forward(self, x, f0, temporal_positions):
+    def forward(self, x, f0, temporal_positions, **kw):
         return cheaptrick_frames(
             x, f0, temporal_positions, fs=self.fs, fft_size=self.fft_size,
             max_half_window=self.max_half_window, q1=self.q1,
-            f0_floor=self.f0_floor)
+            f0_floor=self.f0_floor, **kw)

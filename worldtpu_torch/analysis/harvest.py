@@ -1,4 +1,4 @@
-"""Harvest F0 estimation, f32 production path, batched over utterances.
+"""Harvest F0 estimation, batched over utterances.
 
 Port of worldtpu/analysis/harvest.py (reference src/harvest.cpp): decimate
 -> band filter bank (blocked-Toeplitz matmul) -> zero-crossing candidates
@@ -8,6 +8,13 @@ Every stage takes a leading batch axis B where the JAX package vmapped.
 The internal candidate grid is the reference's 1 ms grid.  Each stage of
 the main path runs inside a ``torch.profiler.record_function`` range named
 ``wt.<stage>``, so one profiled call gives the time of every stage.
+
+float32 is the production path above.  float64 is the parity path, with the
+reference's literal semantics and no hand-written kernel (the JAX package's
+float64 path runs none either): the circular-FFT band filter, dense
+zero-crossing events with histc interpolation, per-pair refine windows
+with full FFTs, pruning over every slot, and the host contour
+(``analysis.contour``) after an int-truncated mean.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from worldtpu_torch.ops import filters
 from worldtpu_torch.ops import refine_kernel as _refine
 from worldtpu_torch.ops import zc_kernel as _zc
 from worldtpu_torch.ops.fftutil import get_suitable_fft_size
+from worldtpu_torch.ops.interp import interp1
+from worldtpu_torch.ops.numeric import matlab_round, rdiv
 
 #: near-duplicate candidate tolerance of the production refine
 #: (worldtpu.analysis.harvest.REFINE_DEDUP_TOL)
@@ -249,9 +258,114 @@ def _overlap_candidates(base):
     return torch.stack(layers, dim=2).reshape(B, F, 7 * cb)
 
 
+#: bands filtered together by the float64 circular-FFT route (bounds the
+#: [B, bands, fft_size] spectra)
+_F64_BAND_CHUNK = 16
+
+
+def _band_filter_fft(y_spectrum, bounds, halves, geo):
+    """Bands' filtered signals by the reference's circular-FFT route:
+    y_spectrum [B, fft_size/2+1], bounds and halves [n] (boundary
+    frequencies, filter half lengths) -> [B, n, y_length]."""
+    dt = bounds.dtype
+    dev = bounds.device
+    Lmax = geo.max_filter_half
+    j = torch.arange(2 * Lmax + 1, device=dev)
+    win = filters.nuttall_window_ragged(2 * halves + 1, 2 * Lmax + 1, dt,
+                                        dev)
+    t = (j[None, :] - halves[:, None]).to(dt) / geo.actual_fs
+    bpf = torch.where(j[None, :] <= 2 * halves[:, None],
+                      win * torch.cos(2.0 * C.PI * bounds[:, None] * t),
+                      torch.zeros((), dtype=dt, device=dev))
+    H = torch.fft.rfft(bpf, n=geo.fft_size)
+    filtered = torch.fft.irfft(y_spectrum[:, None, :] * H[None],
+                               n=geo.fft_size) * geo.fft_size
+    idx = (torch.arange(geo.y_length, device=dev)[None, :]
+           + halves[:, None] + 1) % geo.fft_size        # roll by -(half+1)
+    return torch.gather(filtered, 2, idx[None].expand(
+        filtered.shape[0], -1, -1))
+
+
+def _zero_crossings_f64(sig, n_eff, e_max, fs_a, tpos):
+    """Events and interval interpolation of signals sig [N, L] of one
+    crossing type (reference zeroCrossingEngine + interp1 to the frames),
+    the float64 parity form: dense events, literal histc segment search.
+    Returns (interp [N, F], n_events [N]); interp has no meaning for rows
+    with fewer than 4 events (the caller gates)."""
+    N, L = sig.shape
+    dev = sig.device
+    i = torch.arange(L - 1, device=dev)
+    s0, s1 = sig[:, :-1], sig[:, 1:]
+    mask = (s0 > 0.0) & (s1 <= 0.0) & (i < n_eff - 1)
+    fine = (i + 1).to(sig.dtype) - s0 / (s1 - s0)
+    cum = torch.cumsum(mask, dim=1)
+    count = cum[:, -1]
+    # events to their rank (clamped at e_max - 1), non-events to a dump slot
+    slot = torch.where(mask, (cum - 1).clamp(max=e_max - 1), e_max + 1)
+    dense = torch.full((N, e_max + 2), math.inf, dtype=sig.dtype, device=dev)
+    dense.scatter_(1, slot, fine)
+    f_lo, f_hi = dense[:, :e_max], dense[:, 1:e_max + 1]
+    locations = (f_lo + f_hi) / 2.0 / fs_a
+    intervals = rdiv(fs_a, f_hi - f_lo)
+    n_int = count - 1
+    k = torch.arange(e_max, device=dev)
+    locations = torch.where(k < n_int[:, None], locations,
+                            torch.full((), math.inf, dtype=sig.dtype,
+                                       device=dev))
+    return interp1(locations, intervals, tpos, n_valid=n_int), count
+
+
+def _band_candidates_f64(f, bounds, geo, tpos):
+    """Candidate contours [N, F] of band signals f [N, L] with boundary
+    frequencies bounds [N] (reference getFourZeroCrossingIntervals +
+    getF0CandidateContour), float64 parity form."""
+    y_len = geo.y_length
+    g = Fn.pad(f[:, 1:] - f[:, :-1], (0, 1))
+    total = None
+    usable = None
+    for sig, n_eff in ((f, y_len), (-f, y_len), (g, y_len - 1),
+                       (-g, y_len - 1)):
+        c, n = _zero_crossings_f64(sig, n_eff, geo.e_max, geo.actual_fs, tpos)
+        total = c if total is None else total + c
+        ok_n = n - 1 > 2
+        usable = ok_n if usable is None else usable & ok_n
+    cand = total / 4.0
+    b = bounds[:, None]
+    ok = ((cand <= b * 1.1) & (cand >= b * 0.9)
+          & (cand <= geo.f0_ceil) & (cand >= geo.f0_floor))
+    return torch.where(usable[:, None] & ok, cand,
+                       torch.zeros((), dtype=f.dtype, device=f.device))
+
+
+def _raw_candidates_f64(ym, geo, tpos):
+    """Raw band candidates [B, Nb, F] of the mean-removed decimated signal
+    ym [B, L] by the circular-FFT route, bands in chunks."""
+    B = ym.shape[0]
+    dt, dev = ym.dtype, ym.device
+    y_spectrum = torch.fft.rfft(Fn.pad(ym, (0, geo.fft_size - geo.y_length)))
+    bounds = torch.as_tensor(geo.boundary_f0, dtype=dt, device=dev)
+    halves = torch.as_tensor([_matlab_round_py(geo.actual_fs / b * 2.0)
+                              for b in geo.boundary_f0], device=dev)
+    parts = []
+    for lo in range(0, geo.n_channels, _F64_BAND_CHUNK):
+        bc, hc = (v[lo:lo + _F64_BAND_CHUNK] for v in (bounds, halves))
+        filt = _band_filter_fft(y_spectrum, bc, hc, geo)   # [B, n, L]
+        n = filt.shape[1]
+        raw = _band_candidates_f64(filt.reshape(B * n, -1), bc.repeat(B),
+                                   geo, tpos)
+        parts.append(raw.reshape(B, n, -1))
+    return torch.cat(parts, dim=1)
+
+
 def candidates_stage(y, mean_y, geo):
     """Stages B+C: decimated y [B, L] -> (overlapped candidates [B, F, S],
     raw band candidates [B, Nb, F], base candidates [B, F, cb])."""
+    if y.dtype == torch.float64:
+        tpos = torch.arange(geo.f0_length, dtype=y.dtype,
+                            device=y.device) * (geo.grid_ms / 1000.0)
+        raw = _raw_candidates_f64(y - mean_y[:, None], geo, tpos)
+        base = _detect_candidates(raw, geo)
+        return _overlap_candidates(base), raw, base
     with record_function("wt.band_filter"):
         filt = band_filter(y - mean_y[:, None], geo)
     with record_function("wt.zc"):
@@ -259,6 +373,95 @@ def candidates_stage(y, mean_y, geo):
     with record_function("wt.detect_overlap"):
         base = _detect_candidates(raw, geo)
         return _overlap_candidates(base), raw, base
+
+
+# ---------------------------------------------------------------------------
+# stage D, float64: the dense refine twin
+# ---------------------------------------------------------------------------
+
+def _refine_pairs_f64(y, f0, pp, geo):
+    """Refine (frame, candidate) pairs of one utterance: y [L], candidate
+    frequencies f0 [P] > 0 at frame times pp [P] -> (refined [P], score
+    [P]), zeros where the result is out of range or scores under 2.5.
+    Reference refineF0Candidates / getMeanF0 / fixF0, the literal per-pair
+    layout: each pair's own windows and two full FFTs of geo.refine_fft."""
+    dt, dev = y.dtype, y.device
+    P = f0.shape[0]
+    fs_a = geo.actual_fs
+    hw = (rdiv(1.5 * fs_a, f0) + 1.0).to(torch.int32)
+    w_len = 2 * hw + 1
+    fft_index = 2 + (torch.log(w_len.to(dt)) / C.LOG2).to(torch.int32)
+    fft_p = torch.bitwise_left_shift(torch.ones_like(fft_index), fft_index)
+    ratio = geo.refine_fft // fft_p
+    Wmax = 2 * geo.max_half_window + 1
+    wlt = w_len.to(dt) / fs_a
+    n_harm = rdiv(fs_a / 2.0, f0).to(torch.int32).clamp(max=6)
+    h = torch.arange(6, device=dev)
+    idx_h = matlab_round(f0[:, None] * fft_p[:, None].to(dt) / fs_a
+                         * (h[None, :] + 1.0))
+    gbin = (idx_h * ratio[:, None]).clamp(0, geo.refine_fft // 2).long()
+
+    j = torch.arange(Wmax, device=dev)
+    in_w = j[None, :] < w_len[:, None]
+    base_time0 = -hw.to(dt) / fs_a
+    basic_index = matlab_round((pp + base_time0) * fs_a + 0.001)
+    base_index = basic_index[:, None] + j[None, :]
+    tmp = (base_index.to(dt) - 1.0) / fs_a - pp[:, None]
+    t2 = 2.0 * C.PI * tmp / wlt[:, None]
+    zero = torch.zeros((), dtype=dt, device=dev)
+    mw = 0.42 + 0.5 * torch.cos(t2) + 0.08 * torch.cos(2.0 * t2)
+    mw = torch.where(in_w, mw, zero)
+    mw_m1 = Fn.pad(mw[:, :-1], (1, 0))
+    mw_p1 = Fn.pad(mw[:, 1:], (0, 1))
+    dw = torch.where(in_w, -(mw_p1 - mw_m1) / 2.0, zero)
+    seg = y[(base_index - 1).clamp(0, geo.y_length - 1).long()]
+    Sm = torch.fft.rfft(seg * mw, n=geo.refine_fft)
+    Sd = torch.fft.rfft(seg * dw, n=geo.refine_fft)
+    Sm_re, Sm_im = Sm.real.gather(1, gbin), Sm.imag.gather(1, gbin)
+    Sd_re, Sd_im = Sd.real.gather(1, gbin), Sd.imag.gather(1, gbin)
+    power = Sm_re ** 2 + Sm_im ** 2
+    num_i = Sm_re * Sd_im - Sm_im * Sd_re
+
+    base_freq = idx_h.to(dt) * fs_a / fft_p[:, None].to(dt)
+    instf = torch.where(power == 0.0, zero,
+                        base_freq + num_i / power * fs_a / (2.0 * C.PI))
+    amp = torch.sqrt(power)
+    hmask = (h[None, :] < n_harm[:, None]).to(dt)
+    numer = torch.sum(amp * instf * hmask, dim=1)
+    denom = torch.sum(amp * (h[None, :] + 1.0) * hmask, dim=1)
+    refined = numer / (denom + C.MY_SAFE_GUARD_MINIMUM)
+    dev_ = torch.sum(torch.abs(instf / (h[None, :] + 1.0) - f0[:, None])
+                     / f0[:, None] * hmask, dim=1)
+    score = rdiv(1.0, dev_ / n_harm.clamp(min=1) + C.MY_SAFE_GUARD_MINIMUM)
+    bad = ((refined < geo.f0_floor) | (refined > geo.f0_ceil)
+           | (score < 2.5))
+    return torch.where(bad, zero, refined), torch.where(bad, zero, score)
+
+
+def refine_stage_f64(y, cand, tpos, *, geo, chunk=16):
+    """Stage D, float64 parity form: y [B, L], cand [B, F, S], tpos [F] ->
+    (refined, score) [B, F, S] in the candidates' own slots.  Of each frame
+    the first min(S, max(32, S // 2)) nonzero candidates are refined (the
+    JAX twin's compaction; more than that were never seen: a frame has ~20)
+    and the rest give zero.  The pairs of ``chunk`` frames at a time bound
+    the [pairs, refine_fft] spectra."""
+    B, F, S = cand.shape
+    cap = min(S, max(32, S // 2))
+    active = cand > 0.0
+    active = active & (torch.cumsum(active, dim=2) <= cap)
+    ref = torch.zeros_like(cand)
+    sc = torch.zeros_like(cand)
+    for b in range(B):
+        for lo in range(0, F, chunk):
+            a = active[b, lo:lo + chunk]
+            fi, si = torch.nonzero(a, as_tuple=True)
+            if fi.numel() == 0:
+                continue
+            r, s_ = _refine_pairs_f64(y[b], cand[b, lo:lo + chunk][a],
+                                      tpos[lo + fi], geo)
+            ref[b, lo + fi, si] = r
+            sc[b, lo + fi, si] = s_
+    return ref, sc
 
 
 # ---------------------------------------------------------------------------
@@ -292,11 +495,24 @@ def remove_unreliable_stage(cand, score):
 # fused pipeline
 # ---------------------------------------------------------------------------
 
+def _stages_f64(y, mean_y, geo):
+    """candidates -> refine -> prune of decimated float64 signals y [B, L]
+    less their means mean_y [B]."""
+    tpos = torch.arange(geo.f0_length, dtype=y.dtype,
+                        device=y.device) * (geo.grid_ms / 1000.0)
+    cand, _, _ = candidates_stage(y, mean_y, geo)
+    cand, score = refine_stage_f64(y - mean_y[:, None], cand, tpos, geo=geo)
+    return remove_unreliable_stage(cand, score)
+
+
 def harvest_device_stages(x, mean_y, *, geo):
     """decimate -> candidates -> refine -> prune for x [B, T].
-    Returns (candidates, scores) [B, F, S] (refined slots compacted)."""
+    Returns (candidates, scores) [B, F, S]: refined slots compacted for
+    float32, in the candidates' own slots for float64."""
     with record_function("wt.decimate"):
         y = decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
+    if x.dtype == torch.float64:
+        return _stages_f64(y, mean_y, geo)
     tpos = torch.arange(geo.f0_length, dtype=x.dtype,
                         device=x.device) * (geo.grid_ms / 1000.0)
     cand, _, _ = candidates_stage(y, mean_y, geo)
@@ -315,12 +531,52 @@ def harvest_device_stages(x, mean_y, *, geo):
 
 
 def harvest_device_full(x, mean_y, *, geo, n_out):
-    """Full Harvest wav -> F0 at frame_period: x [B, T] -> [B, n_out]."""
+    """Full Harvest wav -> F0 at frame_period: x [B, T] -> [B, n_out].
+    float32 runs the device contour chain with the mean ``mean_y`` [B];
+    float64 takes ``harvest_parity`` (its own int-truncated mean, the host
+    contour)."""
+    if x.dtype == torch.float64:
+        return harvest_parity(x, geo=geo)
     from worldtpu_torch.analysis import contour_device as CDV
     cand, score = harvest_device_stages(x, mean_y, geo=geo)
     with record_function("wt.contour"):
         return CDV.fix_and_smooth(cand, score, n_out, geo.frame_period,
                                   grid_ms=geo.grid_ms)
+
+
+def int_trunc_mean(y):
+    """The reference Harvest's mean of the decimated signals y [B, L]
+    (float64): its int-initialized accumulate truncates the running sum
+    toward zero at every step (``native.int_trunc_sum``, on the host), so
+    the mean is exactly 0 for |y| < 1.  [B] on y's device."""
+    from worldtpu_torch.native import int_trunc_sum
+    rows = y.detach().cpu().numpy()
+    return torch.tensor([int_trunc_sum(r) / y.shape[1] for r in rows],
+                        dtype=y.dtype, device=y.device)
+
+
+def host_contour(cand, score, geo):
+    """The reference's contour fixing and smoothing of one utterance's
+    [F, S] candidates and scores (float64 numpy, ``analysis.contour``) and
+    the pick of the 1 ms grid at the frame period -> f0 [n_out] numpy."""
+    from worldtpu_torch.analysis import contour
+    best = contour.fix_f0_contour(cand, score)
+    f0_grid = contour.smooth_f0_contour(best)
+    tpos = np.arange(geo.n_grid()) * geo.frame_period / 1000.0
+    x = tpos * 1000.0           # frame times in ms, rounded half away from 0
+    pick = np.where(x > 0, np.floor(x + 0.5), np.ceil(x - 0.5))
+    return f0_grid[np.minimum(geo.f0_length - 1, pick.astype(np.int64))]
+
+
+def harvest_parity(x, *, geo):
+    """Harvest in float64 with the reference's literal semantics: x [B, T]
+    float64 -> F0 [B, n_out] float64 on x's device.  The int-truncated mean
+    and the contour run on the host (two transfers per call)."""
+    y = decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
+    cand, score = _stages_f64(y, int_trunc_mean(y), geo)
+    cand, score = cand.cpu().numpy(), score.cpu().numpy()
+    f0 = np.stack([host_contour(c, s, geo) for c, s in zip(cand, score)])
+    return torch.as_tensor(f0, dtype=x.dtype, device=x.device)
 
 
 class ZcCapacityError(RuntimeError):
@@ -337,46 +593,44 @@ def zc_capacity_violations_batch(x, *, geo):
     return _zc.event_overflows(band_filter(y, geo), geo)
 
 
-#: the f64 parity paths are not ported yet
-F64_NOT_PORTED = ("float64 is not ported to worldtpu_torch yet (ROADMAP "
-                  "Queue 1 item 2, f64 parity paths); use float32")
+def check_dtype(dtype):
+    """Raise ValueError unless dtype is torch.float32 (the production path)
+    or torch.float64 (the parity path)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {dtype}; use torch.float32 or "
+                         f"torch.float64")
 
 
-def check_f32(dtype):
-    """Raise NotImplementedError for float64, ValueError for any dtype
-    other than float32."""
-    if dtype == torch.float64:
-        raise NotImplementedError(F64_NOT_PORTED)
-    if dtype != torch.float32:
-        raise ValueError(f"unsupported dtype {dtype}; use torch.float32")
-
-
-def as_f32(x, device):
-    """x (numpy or tensor) as a float32 tensor on device; with device None
+def as_tensor(x, device, dtype=torch.float32):
+    """x (numpy or tensor) as a tensor of dtype on device; with device None
     x must already be a tensor and stays where it is."""
     if device is None:
         if not isinstance(x, torch.Tensor):
             raise ValueError("pass a torch.Tensor or name a device")
         device = x.device
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 #: 1 ms frames beyond which HarvestKernel.compute_batch runs the contour
-#: chain of CPU input in numpy float64
+#: chain of float32 CPU input in numpy float64
 HOST_CONTOUR_FRAMES = 8192
 
 
 class HarvestKernel(torch.nn.Module):
-    """Harvest for one (fs, x_length) geometry: f32 batches -> F0 at the
-    frame period, on the device of ``device`` (or of the input tensor when
+    """Harvest for one (fs, x_length) geometry: batches -> F0 at the frame
+    period, on the device of ``device`` (or of the input tensor when
     ``device`` is None).
 
     ``forward`` keeps everything on the device; ``compute`` and
     ``compute_batch`` mirror ``worldtpu.analysis.harvest.HarvestKernel``
-    and return numpy.  Input on the card always takes the device contour
-    chain.  CPU input longer than HOST_CONTOUR_FRAMES frames of the 1 ms
-    grid takes the numpy float64 chain (``analysis.contour``)
-    instead, since the dense chain's section layout grows as F^2."""
+    and return numpy.  float32 (the default here; the JAX class defaults
+    to float64) is the production path: input on the card always takes the
+    device contour chain, CPU input longer than HOST_CONTOUR_FRAMES frames
+    of the 1 ms grid the numpy float64 chain (``analysis.contour``)
+    instead, since the dense chain's section layout grows as F^2.  float64
+    is the parity path (``harvest_parity``), on the card too: the
+    reference's literal stages there, its int-truncated mean and contour on
+    the host."""
 
     def __init__(self, fs, x_length, f0_floor=C.FLOOR_F0, f0_ceil=C.CEIL_F0,
                  frame_period=5.0, target_fs=8000.0, channels_in_octave=40.0,
@@ -389,7 +643,7 @@ class HarvestKernel(torch.nn.Module):
         self.device = None if device is None else torch.device(device)
 
     def forward(self, x):
-        """x [B, x_length] float32 -> (f0 [B, n_out], tpos [n_out])."""
+        """x [B, x_length] -> (f0 [B, n_out], tpos [n_out]), in x's dtype."""
         n_out = self.geo.n_grid()
         mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         f0 = harvest_device_full(x, mean, geo=self.geo, n_out=n_out)
@@ -403,32 +657,24 @@ class HarvestKernel(torch.nn.Module):
     def _tpos(self):
         return np.arange(self.get_samples()) * self.geo.frame_period / 1000.0
 
-    def _finish(self, cand, score):
-        """Host contour of one utterance's [F, S] candidates/scores
-        (float64 numpy) -> (f0 [n_out], tpos [n_out])."""
-        from worldtpu_torch.analysis import contour
-        best = contour.fix_f0_contour(cand, score)
-        f0_grid = contour.smooth_f0_contour(best)
-        tpos = self._tpos()
-        x = tpos * 1000.0
-        pick = np.where(x > 0, np.floor(x + 0.5), np.ceil(x - 0.5))
-        pick = np.minimum(self.geo.f0_length - 1, pick.astype(np.int64))
-        return f0_grid[pick], tpos
-
     def compute(self, x, dtype=torch.float32):
         """One utterance x [x_length] -> (f0 [n_out], tpos [n_out]) as
         float64 numpy."""
-        return self.compute_batch(as_f32(x, self.device)[None], dtype)[0]
+        return self.compute_batch(as_tensor(x, self.device, dtype)[None],
+                                  dtype)[0]
 
     def compute_batch(self, x_batch, dtype=torch.float32,
                       check_capacity=False):
         """Harvest over [B, x_length] utterances -> [(f0, tpos)] per
-        utterance (float64 numpy).  ``check_capacity`` first counts the zc
-        event-buffer overflows and raises ZcCapacityError if any utterance
-        has one."""
-        check_f32(dtype)
-        x = as_f32(x_batch, self.device)
+        utterance (float64 numpy).  ``check_capacity`` (float32: float64
+        runs no zc kernel) first counts the zc event-buffer overflows and
+        raises ZcCapacityError if any utterance has one."""
+        check_dtype(dtype)
+        x = as_tensor(x_batch, self.device, dtype)
         with torch.no_grad():
+            if dtype == torch.float64:
+                f0 = harvest_parity(x, geo=self.geo).cpu().numpy()
+                return [(f0[i], self._tpos()) for i in range(len(f0))]
             if check_capacity:
                 v = zc_capacity_violations_batch(x, geo=self.geo).cpu()
                 if bool(v.any()):
@@ -449,4 +695,5 @@ class HarvestKernel(torch.nn.Module):
             cand, score = harvest_device_stages(x, mean, geo=self.geo)
             cand = cand.numpy().astype(np.float64)
             score = score.numpy().astype(np.float64)
-        return [self._finish(cand[i], score[i]) for i in range(len(cand))]
+        return [(host_contour(cand[i], score[i], self.geo), self._tpos())
+                for i in range(len(cand))]

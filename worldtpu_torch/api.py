@@ -10,9 +10,12 @@ Differences from the JAX facades:
   - synthesis noise comes from a ``torch.Generator`` or a ``seed`` in place
     of a JAX key.  The generator's state is restored before every regrow of
     the pulse capacity, so a result depends only on the inputs and the seed;
-  - the f32 production path only: ``dtype`` defaults to float32, and
-    float64 raises NotImplementedError (the f64 parity paths are not
-    ported yet);
+  - ``dtype`` defaults to float32, the production path, where the JAX
+    facades default to float64; ``dtype=torch.float64`` takes the parity
+    path with the reference's literal semantics, on the facade's device
+    (its strictly sequential steps run on the host or in one-thread
+    kernels).  ``CheapTrick.compute`` and ``D4C.compute`` pass the
+    reference's randn() dithers (``analysis.dither``) through to it;
   - ``CheapTrick``, ``D4C`` and ``Synthesis`` return tensors on the device;
     ``Harvest`` and ``World`` return numpy arrays, as in JAX.
 """
@@ -129,13 +132,20 @@ class CheapTrick:
         return f0_floor_for_cheaptrick(fs, fft_size)
 
     @torch.no_grad()
-    def compute(self, x, temporal_positions, f0, dtype=torch.float32):
+    def compute(self, x, temporal_positions, f0, dtype=torch.float32,
+                window_dither=None, spectrum_dither=None):
         """Returns the spectrogram [F, fft_size//2+1] (power) on the
-        device."""
-        _harvest.check_f32(dtype)
-        x, f0, tpos = (_harvest.as_f32(v, self.device)
+        device.  ``window_dither`` [F, 2*max_half_window+1] and
+        ``spectrum_dither`` [F, K] are the float64 parity dithers of
+        ``analysis.dither.cheaptrick_dither``."""
+        _harvest.check_dtype(dtype)
+        x, f0, tpos = (_harvest.as_tensor(v, self.device, dtype)
                        for v in (x, f0, temporal_positions))
-        return self._kernel(x[None], f0[None], tpos)[0]
+        dither = {k: _harvest.as_tensor(v, self.device, dtype)[None]
+                  for k, v in (("window_dither", window_dither),
+                               ("spectrum_dither", spectrum_dither))
+                  if v is not None}
+        return self._kernel(x[None], f0[None], tpos, **dither)[0]
 
 
 class D4C:
@@ -149,14 +159,19 @@ class D4C:
 
     @torch.no_grad()
     def compute(self, x, temporal_positions, f0, fft_size,
-                dtype=torch.float32):
-        """Returns the aperiodicity [F, fft_size//2+1] on the device."""
-        _harvest.check_f32(dtype)
-        x, f0, tpos = (_harvest.as_f32(v, self.device)
+                dtype=torch.float32, **dithers):
+        """Returns the aperiodicity [F, fft_size//2+1] on the device.
+        ``dithers``: the float64 parity dithers ``lt_dither``,
+        ``c1_dither``, ``c2_dither``, ``h_dither`` of ``analysis.dither``,
+        one row per frame."""
+        _harvest.check_dtype(dtype)
+        x, f0, tpos = (_harvest.as_tensor(v, self.device, dtype)
                        for v in (x, f0, temporal_positions))
+        dithers = {k: _harvest.as_tensor(v, self.device, dtype)[None]
+                   for k, v in dithers.items() if v is not None}
         return d4c_frames(x[None], f0[None], tpos, fs=self.fs,
                           fft_size_out=fft_size,
-                          threshold=self.option.threshold)[0]
+                          threshold=self.option.threshold, **dithers)[0]
 
 
 class Synthesis:
@@ -177,15 +192,16 @@ class Synthesis:
         """Returns y [out_length] on the device.
 
         Noise: standard normal rows from ``generator`` (default a new one
-        seeded with ``seed``), or an explicit [max_pulses, fft_size] array.
+        seeded with ``seed``), or an explicit [max_pulses, fft_size] array
+        (for float64 parity with the reference: ``synthesis.parity_noise``).
         A pulse count above the capacity regrows it (doubling, up to the
         reference's bound) with the generator restored to its starting
         state; with explicit noise it raises OverflowError instead."""
-        _harvest.check_f32(dtype)
+        _harvest.check_dtype(dtype)
         d = self.device
         caller_noise = noise is not None
         if caller_noise:
-            noise = _harvest.as_f32(noise, d)
+            noise = _harvest.as_tensor(noise, d, dtype)
             if max_pulses is None:
                 max_pulses = noise.shape[0]
             if tuple(noise.shape) != (max_pulses, self.fft_size):
@@ -200,13 +216,13 @@ class Synthesis:
             out_length, self.fs, f0_ceil=max(self.f0_ceil,
                                              float(np.max(f0_np))))
         gen, state = _generator(generator, seed, d)
-        f0_t, sp, ap = (_harvest.as_f32(v, d) for v in (f0, spectrogram,
-                                                aperiodicity))
+        f0_t, sp, ap = (_harvest.as_tensor(v, d, dtype)
+                        for v in (f0, spectrogram, aperiodicity))
         while True:
             if not caller_noise:
                 gen.set_state(state)
                 noise = _syn.make_noise(gen, 1, max_pulses, self.fft_size,
-                                        device=d)[0]
+                                        dtype=dtype, device=d)[0]
             y, overflowed = _syn.synthesis_frames(
                 f0_t, sp, ap, noise, fs=self.fs, fft_size=self.fft_size,
                 frame_period_s=self.frame_period / 1000.0,
@@ -223,8 +239,8 @@ class Synthesis:
 
 class World:
     """The reference demo's workflow (Harvest -> CheapTrick -> D4C
-    [-> Synthesis]) as one batched call per utterance, F0 never leaving
-    the device (parallel.batch)."""
+    [-> Synthesis]) as one batched call per utterance (parallel.batch); in
+    float32 F0 never leaves the device."""
 
     def __init__(self, fs: int, *, frame_period: float = 5.0,
                  f0_floor: float = C.FLOOR_F0, f0_ceil: float = C.CEIL_F0,
@@ -245,11 +261,12 @@ class World:
     def analyze(self, x, pitch_scale: float = 1.0, dtype=torch.float32):
         """wav -> (temporal_positions, f0, spectrogram, aperiodicity) as
         numpy arrays."""
-        _harvest.check_f32(dtype)
+        _harvest.check_dtype(dtype)
         hk = self._harvest._kernel(len(x))
         ck = self._cheaptrick._kernel
         f0, spec, ap = _batch.batch_analyze(
-            _harvest.as_f32(x, self.device)[None], geo=hk.geo, fs=self.fs,
+            _harvest.as_tensor(x, self.device, dtype)[None], geo=hk.geo,
+            fs=self.fs,
             fft_size=self.fft_size, max_half_window=ck.max_half_window,
             pitch_scale=pitch_scale)
         tpos = np.arange(f0.shape[1]) * (self.frame_period / 1000.0)
@@ -263,7 +280,7 @@ class World:
         optional pitch and duration modification.  The pulse capacity
         starts at the static bound and doubles on overflow up to the
         reference's bound, the noise generator restored each time."""
-        _harvest.check_f32(dtype)
+        _harvest.check_dtype(dtype)
         hk = self._harvest._kernel(len(x))
         ck = self._cheaptrick._kernel
         F = hk.get_samples()
@@ -273,10 +290,10 @@ class World:
         hard = _syn.default_max_pulses(out_length, self.fs,
                                        f0_ceil=self.f0_ceil * pitch_scale)
         gen, state = _generator(generator, seed, self.device)
-        xb = _harvest.as_f32(x, self.device)[None]
+        xb = _harvest.as_tensor(x, self.device, dtype)[None]
         while True:
             gen.set_state(state)
-            noise = _syn.make_noise(gen, 1, mp, self.fft_size,
+            noise = _syn.make_noise(gen, 1, mp, self.fft_size, dtype=dtype,
                                     device=self.device)
             y, f0, ovf = _batch.batch_wav_to_wav(
                 xb, noise, geo=hk.geo, fs=self.fs, fft_size=self.fft_size,

@@ -5,16 +5,17 @@ Harvest -> CheapTrick -> D4C -> [F0 scale / formant warp] -> Synthesis ->
 wav, with byte-compatible parameter files), with ``--device`` in place of
 ``--platform``:
 
-    python -m worldtpu_torch.cli copy-syn in.wav out.wav --f32 [--fused]
-    python -m worldtpu_torch.cli analyze in.wav prefix --f32
-    python -m worldtpu_torch.cli synthesize prefix out.wav --f32
+    python -m worldtpu_torch.cli copy-syn in.wav out.wav [--f32] [--fused]
+    python -m worldtpu_torch.cli analyze in.wav prefix [--f32]
+    python -m worldtpu_torch.cli synthesize prefix out.wav [--f32]
 
 ``--device`` is ``cuda`` by default and the CLI raises when no CUDA device
 is present rather than running on the CPU; ``--device cpu`` runs the plain
-PyTorch versions of the kernels.  Only the float32 path is ported: without
-``--f32`` (or ``--fused``, which implies it) the CLI raises
-NotImplementedError.  Files go through the port's numpy-only ``io.wav`` and
-``io.params`` (byte-compatible with ``worldtpu``'s), metrics through its
+PyTorch versions of the kernels.  As in ``worldtpu.cli``, the compute is
+float64 (the parity path, the reference's literal semantics) unless
+``--f32`` (the production path) or ``--fused`` (which implies it) is given.
+Files go through the port's numpy-only ``io.wav`` and ``io.params``
+(byte-compatible with ``worldtpu``'s), metrics through its
 ``metrics.MetricsRecorder``.
 """
 
@@ -83,7 +84,8 @@ def _analyze(run, x, fs, frame_period, f0_floor, dtype):
             cheaptrick.fft_size)
 
 
-def _modify(run, f0, spec, fs, fft_size, f0_scale, formant_scale):
+def _modify(run, f0, spec, fs, fft_size, f0_scale, formant_scale,
+            dtype=torch.float32):
     """Reference ParameterModification (test/test.cpp:201-243): F0 scale
     and formant warp of the spectral envelope."""
     from worldtpu_torch.ops.interp import interp1
@@ -92,10 +94,10 @@ def _modify(run, f0, spec, fs, fft_size, f0_scale, formant_scale):
         return f0, spec
     k = fft_size // 2 + 1
     freq1 = torch.as_tensor(formant_scale * np.arange(k) / fft_size * fs,
-                            dtype=torch.float32, device=run.device)
+                            dtype=dtype, device=run.device)
     freq2 = torch.as_tensor(np.arange(k) / fft_size * fs,
-                            dtype=torch.float32, device=run.device)
-    logsp = torch.log(torch.as_tensor(spec, dtype=torch.float32,
+                            dtype=dtype, device=run.device)
+    logsp = torch.log(torch.as_tensor(spec, dtype=dtype,
                                       device=run.device))
     out = torch.exp(interp1(freq1, logsp, freq2)).cpu().numpy()
     if formant_scale < 1.0:
@@ -166,8 +168,8 @@ def _parser():
     p.add_argument("--f0-scale", type=float, default=1.0)
     p.add_argument("--formant-scale", type=float, default=1.0)
     p.add_argument("--f32", action="store_true",
-                   help="float32 compute (the only path ported; without "
-                        "it the float64 path raises NotImplementedError)")
+                   help="float32 compute (the production path); without "
+                        "it the float64 parity path runs")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="compute device (default cuda; raises without a "
                         "CUDA device)")
@@ -193,10 +195,7 @@ def main(argv=None):
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
     device = torch.device(args.device)
-    if not (args.f32 or args.fused):
-        from worldtpu_torch.analysis.harvest import F64_NOT_PORTED
-        raise NotImplementedError(F64_NOT_PORTED)
-    dtype = torch.float32
+    dtype = torch.float32 if args.f32 else torch.float64
 
     from worldtpu_torch.io import params, wav
 
@@ -236,7 +235,7 @@ def main(argv=None):
                 run, x, fs, args.frame_period, args.f0_floor, dtype)
             if args.command == "copy-syn":
                 f0, spec = _modify(run, f0, spec, fs, fft_size,
-                                   args.f0_scale, args.formant_scale)
+                                   args.f0_scale, args.formant_scale, dtype)
                 y = _synthesize(run, f0, spec, ap, fs, fft_size,
                                 args.frame_period, dtype, args.seed)
         if args.command == "analyze":
@@ -265,7 +264,7 @@ def main(argv=None):
     fs, fft_size = meta["fs"], meta["fft_size"]
     with profile_region():
         f0, spec = _modify(run, f0, spec, fs, fft_size,
-                           args.f0_scale, args.formant_scale)
+                           args.f0_scale, args.formant_scale, dtype)
         y = _synthesize(run, f0, spec, ap, fs, fft_size, fp, dtype,
                         args.seed)
     wav.wavwrite(args.output, y, fs)

@@ -31,6 +31,11 @@
 // No atomics: each output is summed in pulse order (an out-of-range pulse
 // adds a predicated 0.0f, which leaves any sum unchanged), so the result is
 // deterministic and equal to the former one-sample-per-thread design's.
+//
+// The kernel is a template on the sample type.  wt_ola is the float
+// instantiation; wt_ola_f64 the double one, for the float64 parity path:
+// its sums must come in pulse order, as the reference's sequential loop adds
+// them, which an index_add_ with atomics does not give.  Its bytes double.
 
 #include <cuda_runtime.h>
 
@@ -62,9 +67,10 @@ __device__ int warp_lower_bound(const int* a, int n, int v, int lane) {
   return lo;
 }
 
+template <typename R>
 __global__ void __launch_bounds__(kThreads)
-ola_kernel(const float* __restrict__ resp, const int* __restrict__ starts,
-           const long long* __restrict__ n_pulses, float* __restrict__ out,
+ola_kernel(const R* __restrict__ resp, const int* __restrict__ starts,
+           const long long* __restrict__ n_pulses, R* __restrict__ out,
            int P, int fft, int T) {
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * kTile;
@@ -89,22 +95,22 @@ ola_kernel(const float* __restrict__ resp, const int* __restrict__ starts,
 
   int t[kPer];
   bool inside[kPer];
-  float acc[kPer];
+  R acc[kPer];
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     t[k] = t0 + threadIdx.x + k * kThreads;
     inside[k] = t[k] < T;
-    acc[k] = 0.0f;
+    acc[k] = R(0);
   }
-  const float* rb = resp + (size_t)b * P * fft;
+  const R* rb = resp + (size_t)b * P * fft;
   for (int base = p0; base < p1; base += kChunk) {
     const int cnt = min(kChunk, p1 - base);
     if (threadIdx.x < cnt) sst[threadIdx.x] = st[base + threadIdx.x];
     __syncthreads();
-    const float* rp = rb + (size_t)base * fft;
+    const R* rp = rb + (size_t)base * fft;
     int i = 0;
     for (; i + kUnroll <= cnt; i += kUnroll) {
-      float v[kUnroll][kPer];
+      R v[kUnroll][kPer];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int s = sst[i + u];
@@ -113,7 +119,7 @@ ola_kernel(const float* __restrict__ resp, const int* __restrict__ starts,
           const int j = t[k] - s;
           v[u][k] = (inside[k] && j >= 0 && j < fft)
                         ? __ldg(rp + (size_t)(i + u) * fft + j)
-                        : 0.0f;
+                        : R(0);
         }
       }
 #pragma unroll
@@ -137,13 +143,26 @@ ola_kernel(const float* __restrict__ resp, const int* __restrict__ starts,
     if (inside[k]) out[(size_t)b * T + t[k]] = acc[k];
 }
 
+template <typename R>
+int launch_ola(const R* resp, const int* starts, const long long* n_pulses,
+               R* out, int B, int P, int fft, int T, void* stream) {
+  dim3 grid((T + kTile - 1) / kTile, B);
+  ola_kernel<R><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      resp, starts, n_pulses, out, P, fft, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int wt_ola(const float* resp, const int* starts,
                       const long long* n_pulses, float* out, int B, int P,
                       int fft, int T, void* stream) {
-  dim3 grid((T + kTile - 1) / kTile, B);
-  ola_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      resp, starts, n_pulses, out, P, fft, T);
-  return static_cast<int>(cudaGetLastError());
+  return launch_ola<float>(resp, starts, n_pulses, out, B, P, fft, T, stream);
+}
+
+extern "C" int wt_ola_f64(const double* resp, const int* starts,
+                          const long long* n_pulses, double* out, int B,
+                          int P, int fft, int T, void* stream) {
+  return launch_ola<double>(resp, starts, n_pulses, out, B, P, fft, T,
+                            stream);
 }

@@ -1,10 +1,14 @@
-"""DSP filter primitives, f32 production forms: Nuttall window, the exact
-blocked-matmul IIR and decimation, DC correction and linear smoothing.
+"""DSP filter primitives: Nuttall window, the exact blocked-matmul IIR and
+decimation, the zero-lag biquad, DC correction and linear smoothing.
 
 Port of worldtpu/ops/filters.py (reference world_common.cpp DCCorrection /
 LinearSmoothing / NuttallWindow and world_matlabfunctions.cpp decimate).
 Every function takes a leading batch of rows; matmuls run in full f32
-(the package turns TF32 off).
+(the package turns TF32 off).  ``dc_correction_frames`` and
+``linear_smoothing_frames`` take the f32 production forms for float32 and
+the reference's literal arithmetic, term for term, for float64 (the parity
+path: ``dc_correction``, ``linear_smoothing``).  ``iir_affine_scan`` and
+``decimate`` are the same blocked matmuls in either dtype.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import torch
 import torch.nn.functional as Fn
 
 from worldtpu_torch import constants as C
+from worldtpu_torch import native
+from worldtpu_torch.ops.seqsum import cumsum_sequential
 
 # Decimation anti-alias filter coefficients by ratio, verbatim from the
 # reference FilterForDecimate (as in worldtpu/ops/filters.py).
@@ -52,6 +58,46 @@ def nuttall_window(length, dtype=torch.float32, device=None):
             - 0.487396 * torch.cos(2.0 * C.PI * t)
             + 0.144232 * torch.cos(4.0 * C.PI * t)
             - 0.012604 * torch.cos(6.0 * C.PI * t))
+
+
+def _nuttall(t):
+    return (0.355768
+            - 0.487396 * torch.cos(2.0 * C.PI * t)
+            + 0.144232 * torch.cos(4.0 * C.PI * t)
+            - 0.012604 * torch.cos(6.0 * C.PI * t))
+
+
+def nuttall_window_ragged(length, max_length, dtype=torch.float64,
+                          device=None):
+    """Nuttall windows of per-row ``length`` (a number, or an integer
+    tensor [...]) padded with zeros to max_length: [..., max_length]."""
+    i = torch.arange(max_length, dtype=dtype, device=device)
+    n = torch.as_tensor(length, device=device).to(dtype)[..., None]
+    return torch.where(i < n, _nuttall(i / (n - 1.0)),
+                       torch.zeros((), dtype=dtype, device=device))
+
+
+def biquad_zero_lag(x, a_coeffs, b_coeffs):
+    """Zero-lag biquad of Harvest's F0 smoothing (reference filteringF0)
+    over x [T] float64: a forward pass written reversed, twice, with the
+    recurrence ``wt = x + a0*w0 + a1*w1; y = b0*wt + b1*w0 + b0*w1`` run
+    strictly in order on the host (the C helper of ``native``, or the same
+    loop in Python), as the reference runs it.  Returns a tensor on x's
+    device."""
+    xs = x.detach().cpu().numpy().astype(np.float64)
+    out = native.filter_f0(xs, b_coeffs, a_coeffs)
+    if out is None:
+        out = xs
+        for _ in range(2):
+            w0 = w1 = 0.0
+            nxt = np.empty_like(out)
+            for i, v in enumerate(out):
+                wt = v + a_coeffs[0] * w0 + a_coeffs[1] * w1
+                nxt[len(out) - i - 1] = (b_coeffs[0] * wt + b_coeffs[1] * w0
+                                         + b_coeffs[0] * w1)
+                w1, w0 = w0, wt
+            out = nxt
+    return torch.as_tensor(out, dtype=x.dtype, device=x.device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -145,10 +191,37 @@ def decimate(x, r):
     return y2[..., start:start + r * (n_picks - 1) + 1:r]
 
 
+def dc_correction(power_spectra, f0, fs, fft_size):
+    """DCCorrection over [N, K] frames with per-frame f0 [N], in the
+    reference's literal rounding order (world_common.cpp DCCorrection and
+    interp1Q): mirror the sub-F0 power back onto the low bins.  The float64
+    parity form."""
+    N, K = power_spectra.shape
+    dt = power_spectra.dtype
+    dev = power_spectra.device
+    f0 = f0.to(dt)[:, None]
+    i = torch.arange(K, dtype=dt, device=dev)[None, :]
+    upper_limit = 2 + (f0 * fft_size / fs).to(torch.int32)
+    xi = i * fs / fft_size
+    pos = (xi - f0) / (-(fs / fft_size))
+    base = pos.to(torch.int32)
+    frac = pos - base.to(dt)
+    base_c = base.clamp(0, K - 2).long()
+    y0 = torch.gather(power_spectra, 1, base_c)
+    y1 = torch.gather(power_spectra, 1, base_c + 1)
+    replica = y0 + (y1 - y0) * frac
+    add = torch.where(i < (upper_limit - 1).to(dt), replica,
+                      torch.zeros((), dtype=dt, device=dev))
+    return power_spectra + add
+
+
 def dc_correction_frames(power_spectra, f0, fs, fft_size, max_f0):
-    """Batched f32 DCCorrection over [N, K] frames with per-frame f0 [N]
-    (assumed <= max_f0): mirror the sub-F0 power back onto the low bins,
-    touching only the first O(max_f0*fft/fs) bins."""
+    """Batched DCCorrection over [N, K] frames with per-frame f0 [N]
+    (assumed <= max_f0): mirror the sub-F0 power back onto the low bins.
+    float32 touches only the first O(max_f0*fft/fs) bins; float64 takes
+    the literal ``dc_correction``."""
+    if power_spectra.dtype == torch.float64:
+        return dc_correction(power_spectra, f0, fs, fft_size)
     N, K = power_spectra.shape
     dt = power_spectra.dtype
     L = min(K, int(max_f0 * fft_size / fs) + 4)
@@ -168,16 +241,58 @@ def dc_correction_frames(power_spectra, f0, fs, fft_size, max_f0):
     return torch.cat([ps + add, power_spectra[:, L:]], dim=1)
 
 
+def linear_smoothing(power_spectra, widths, fs, fft_size, max_boundary):
+    """LinearSmoothing of [N, K] frames over per-frame widths [N] Hz in the
+    reference's literal arithmetic, term for term (world_common.cpp
+    SetParametersForLinearSmoothing / LinearSmoothing and interp1Q): mirror
+    the spectrum by ``boundary`` bins, integrate it strictly left to right
+    (``cumsum_sequential``: a reassociated sum differs by ~eps * total,
+    which shows at near-zero tail bins after the high-minus-low
+    cancellation), and difference the integral at f +- width/2.  The
+    float64 parity form; ``max_boundary`` >= every row's boundary."""
+    N, K = power_spectra.shape
+    half = K - 1
+    dt = power_spectra.dtype
+    dev = power_spectra.device
+    widths = widths.to(dt)[:, None]
+    boundary = (widths * fft_size / fs).to(torch.int32) + 1       # [N, 1]
+    j = torch.arange(K + 2 * max_boundary, device=dev)[None, :] - boundary
+    refl = j.abs()
+    refl = torch.where(refl > half, fft_size - refl, refl).clamp(0, half)
+    mirr = torch.gather(power_spectra, 1, refl.long())
+    seg = cumsum_sequential((mirr * fs) / fft_size)
+    i = torch.arange(K, dtype=dt, device=dev)[None, :]
+    freq = i / fft_size * fs - widths / 2.0
+    origin = -(boundary.to(dt) - 0.5) * fs / fft_size
+    dx = fs / fft_size
+
+    def levels(xi):
+        t = (xi - origin) / dx
+        base = t.to(torch.int32)                  # truncation; t > 0 here
+        frac = t - base.to(dt)
+        base_c = base.clamp(0, seg.shape[1] - 2).long()
+        y0 = torch.gather(seg, 1, base_c)
+        y1 = torch.gather(seg, 1, base_c + 1)
+        return y0 + (y1 - y0) * frac
+
+    return (levels(freq + widths) - levels(freq)) / widths
+
+
 def linear_smoothing_frames(power_spectra, widths, fs, fft_size,
                             max_boundary):
-    """Batched f32 LinearSmoothing of [N, K] frames over per-frame widths
-    [N] Hz (port of worldtpu/ops/filters.py::linear_smoothing_batch).
+    """Batched LinearSmoothing of [N, K] frames over per-frame widths [N]
+    Hz: float64 takes the literal ``linear_smoothing``, float32 the
+    production form (port of
+    worldtpu/ops/filters.py::linear_smoothing_batch).
 
     The interpolated integral difference is four taps of the mirrored
     prefix sum at row-constant offsets; their suffix sums form a dense
     non-negative kernel ((1-f_lo), 1..1, f_hi) that is applied as one
     depthwise convolution of the mirrored spectrum — positive accumulation,
     so relative error stays ~eps on high-dynamic-range spectra."""
+    if power_spectra.dtype == torch.float64:
+        return linear_smoothing(power_spectra, widths, fs, fft_size,
+                                max_boundary)
     N, K = power_spectra.shape
     half = K - 1
     dt = power_spectra.dtype

@@ -14,13 +14,17 @@ from worldtpu_torch import _build
 from worldtpu_torch.ops.numeric import device_kind
 
 
+#: the kernel's C entry by sample type
+_ENTRIES = {torch.float32: "wt_ola", torch.float64: "wt_ola_f64"}
+
+
 def overlap_add(resp, starts, out_length, n_pulses=None):
     """Add resp[b, p] into out[b, starts[b, p] : starts[b, p] + fft] for
     the first n_pulses[b] pulses of each utterance (all of them when
     n_pulses is None), dropping samples outside [0, out_length).
 
     Args:
-        resp: [B, P, fft] float32 responses.
+        resp: [B, P, fft] float32 or float64 responses.
         starts: [B, P] int32 start samples, non-decreasing along P (pulses
             in time order; padding pulses last with zero response).
         out_length: output samples per utterance.
@@ -28,7 +32,9 @@ def overlap_add(resp, starts, out_length, n_pulses=None):
             base's, on the device): the kernel scans no pulse past it.
 
     Returns:
-        [B, out_length] float32.
+        [B, out_length] of resp's dtype.  On the card both dtypes sum each
+        output sample in pulse order (no atomics): the float64 parity path
+        needs the reference's order of additions.
     """
     if device_kind(resp) == "cpu":
         return overlap_add_plain(resp, starts, out_length, n_pulses)
@@ -55,15 +61,20 @@ def overlap_add_plain(resp, starts, out_length, n_pulses=None):
 
 
 def overlap_add_cuda(resp, starts, out_length, n_pulses=None):
-    """Launch ``wt_ola``: one block per (utterance, 512-sample tile)."""
+    """Launch ``wt_ola`` (float32) or ``wt_ola_f64`` (float64), the same
+    kernel for either sample type: one block per (utterance, 512-sample
+    tile)."""
     B, P, fft = resp.shape
-    _build.check_tensor(resp, "resp", torch.float32)
+    if resp.dtype not in _ENTRIES:
+        raise ValueError(f"resp: expected float32 or float64, got "
+                         f"{resp.dtype}")
+    _build.check_tensor(resp, "resp", resp.dtype)
     _build.check_tensor(starts, "starts", torch.int32, (B, P), resp.device)
     if n_pulses is not None:
         _build.check_tensor(n_pulses, "n_pulses", torch.int64, (B,),
                             resp.device)
-    out = torch.empty((B, out_length), dtype=torch.float32,
+    out = torch.empty((B, out_length), dtype=resp.dtype,
                       device=resp.device)
-    _build.launch("wt_ola", resp.device, resp, starts, n_pulses, out, B, P,
+    _build.launch(_ENTRIES[resp.dtype], resp.device, resp, starts, n_pulses, out, B, P,
                   fft, out_length)
     return out

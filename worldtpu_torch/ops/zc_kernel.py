@@ -229,9 +229,18 @@ def zc_events(filt, geo):
     c_row events (ccol counts them) at the running offset, clamped to
     e_cap - c_row, later columns over earlier ones; +inf elsewhere.  With
     no clamp that is every kept event, sorted, then +inf."""
-    fn = zc_events_plain if device_kind(filt) == "cpu" else zc_events_cuda
-    return [fn(filt, g.lo, g.hi, e_cap=g.e_cap, c_row=g.c_row)
-            for g in make_groups(geo)]
+    return zc_events_groups(filt, [(g.lo, g.hi, g.e_cap, g.c_row)
+                                   for g in make_groups(geo)])
+
+
+def zc_events_groups(filt, specs):
+    """``zc_events`` for band groups given as (lo, hi, e_cap, c_row): on
+    the card one launch of ``wt_zc_events`` for all of them, on the CPU
+    the plain version group by group."""
+    if device_kind(filt) == "cpu":
+        return [zc_events_plain(filt, lo, hi, e_cap=e_cap, c_row=c_row)
+                for lo, hi, e_cap, c_row in specs]
+    return _zc_events_launch(filt, specs)
 
 
 def _type_signals(f):
@@ -280,21 +289,63 @@ def zc_events_plain(filt, lo, hi, *, e_cap, c_row):
             torch.stack(ccols, dim=1).reshape(B, nb_g, 4, n_cols))
 
 
+#: band groups that one ``wt_zc_events`` launch takes (its table's size)
+MAX_EVENT_GROUPS = 16
+
+
 def zc_events_cuda(filt, lo, hi, *, e_cap, c_row):
-    """Launch ``wt_zc_events``: one block per (utterance, band)."""
+    """Launch ``wt_zc_events`` for the one band group lo..hi."""
+    return _zc_events_launch(filt, [(lo, hi, e_cap, c_row)])[0]
+
+
+@functools.lru_cache(maxsize=16)
+def _events_plan(specs, B, nb, L):
+    """The launch plan of ``wt_zc_events`` for band groups ``specs`` on
+    [B, nb, L] signals, checked once per geometry: (the host table of
+    (lo, nb_g, e_cap, c_row, ev offset, ccol offset) rows, the groups' ev
+    and ccol shapes, their element counts)."""
+    if not 1 <= len(specs) <= MAX_EVENT_GROUPS:
+        raise ValueError(f"{len(specs)} band groups: one launch takes 1.."
+                         f"{MAX_EVENT_GROUPS}")
+    if L < 2:
+        raise ValueError(f"L {L}: need at least 2 samples")
+    n_cols = -(-L // _COL)
+    table, ev_shapes, cc_shapes = [], [], []
+    ev_n = cc_n = 0
+    for lo, hi, e_cap, c_row in specs:
+        if not 0 <= lo < hi <= nb:
+            raise ValueError(f"band range {lo}..{hi} outside 0..{nb}")
+        if not 1 <= c_row <= e_cap:
+            raise ValueError(f"c_row {c_row} and e_cap {e_cap}: need "
+                             f"1 <= c_row <= e_cap")
+        nb_g = hi - lo
+        table.append((lo, nb_g, e_cap, c_row, ev_n, cc_n))
+        ev_shapes.append((B, nb_g, 4, e_cap))
+        cc_shapes.append((B, nb_g, 4, n_cols))
+        ev_n += B * nb_g * 4 * e_cap
+        cc_n += B * nb_g * 4 * n_cols
+    # the table stays in host memory: the C entry copies it into the
+    # kernel's arguments before it returns
+    return (torch.tensor(table, dtype=torch.int64), ev_shapes, cc_shapes,
+            [math.prod(sh) for sh in ev_shapes],
+            [math.prod(sh) for sh in cc_shapes])
+
+
+def _zc_events_launch(filt, specs):
+    """One launch of ``wt_zc_events`` (a block per (utterance, band) row)
+    for the band groups ``specs``; their (ev, ccol) are views of two
+    allocations."""
     B, nb, L = filt.shape
     _build.check_tensor(filt, "filt", torch.float32)
-    if not 0 <= lo < hi <= nb:
-        raise ValueError(f"band range {lo}..{hi} outside 0..{nb}")
-    nb_g = hi - lo
-    n_cols = -(-L // _COL)
-    ev = torch.empty((B, nb_g, 4, e_cap), dtype=torch.float32,
-                     device=filt.device)
-    ccol = torch.empty((B, nb_g, 4, n_cols), dtype=torch.int32,
-                       device=filt.device)
-    _build.launch("wt_zc_events", filt.device, filt, ev, ccol, B * nb_g, nb,
-                  lo, nb_g, L, e_cap, c_row, n_cols, _round_up(n_cols, 8))
-    return ev, ccol
+    tab, ev_shapes, cc_shapes, ev_sizes, cc_sizes = _events_plan(
+        tuple(tuple(sp) for sp in specs), B, nb, L)
+    n_cols = cc_shapes[0][3]
+    ev = torch.empty(sum(ev_sizes), dtype=torch.float32, device=filt.device)
+    ccol = torch.empty(sum(cc_sizes), dtype=torch.int32, device=filt.device)
+    _build.launch("wt_zc_events", filt.device, filt, ev, ccol, tab,
+                  len(specs), B, nb, L, n_cols, _round_up(n_cols, 8))
+    return [(e.view(se), c.view(sc)) for e, c, se, sc in zip(
+        ev.split(ev_sizes), ccol.split(cc_sizes), ev_shapes, cc_shapes)]
 
 
 def event_overflows(filt, geo):

@@ -4,7 +4,9 @@ path over [B, T] padded utterances on one device.
 Port of worldtpu/parallel/batch.py with ``mesh=None`` (the JAX package's
 single-chip program).  Batches are padded: utterances to a common T (zero
 samples) and a common F (zero = unvoiced frames); callers slice outputs
-back to their true lengths.
+back to their true lengths.  The dtype of ``x`` selects the path: float32
+the production one, float64 the parity one (``harvest.harvest_parity``
+and the float64 branches of the analysis and synthesis, without dither).
 """
 
 from __future__ import annotations
@@ -47,8 +49,8 @@ def batch_copy_synthesis(x, f0, tpos, noise, *, fs, fft_size,
 def batch_wav_to_wav(x, noise, *, geo, fs, fft_size, max_half_window,
                      frame_period_s, out_length, max_pulses, pitch_scale=1.0,
                      return_overflow=False):
-    """The main path: [B, T] wavs -> Harvest F0 (with the device contour
-    chain) -> pitch scaling -> CheapTrick + D4C -> synthesis ->
+    """The main path: [B, T] wavs -> Harvest F0 (float32: with the device
+    contour chain) -> pitch scaling -> CheapTrick + D4C -> synthesis ->
     [B, out_length] wavs.  Duration modification is the synthesis
     frame_period_s.
 

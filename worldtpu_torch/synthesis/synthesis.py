@@ -1,12 +1,16 @@
-"""WORLD synthesis, f32 production path, batched over utterances: pulse +
-noise excitation of minimum-phase filters, overlap-added by the OLA kernel.
+"""WORLD synthesis, batched over utterances: pulse + noise excitation of
+minimum-phase filters, overlap-added by the OLA kernel.
 
 Port of worldtpu/synthesis/synthesis.py (reference src/synthesis.cpp).
-Pulse timing is Q32 fixed-point phase accumulation: the per-sample phase
-step in 1/2^32 cycles is summed exactly (int64 cumsum, masked to 32 bits
-— the JAX version's int32 wraparound), and a pulse falls where the phase
-wraps.  The pulse axis is padded to a static ``max_pulses`` with masked
-tail pulses at sample T-1.
+In float32, the production path, pulse timing is Q32 fixed-point phase
+accumulation: the per-sample phase step in 1/2^32 cycles is summed exactly
+(int64 cumsum, masked to 32 bits — the JAX version's int32 wraparound), and
+a pulse falls where the phase wraps.  In float64, the parity path, it is
+the reference's double accumulation, strictly left to right
+(``cumsum_sequential``), with ``fmod``: a reassociated sum flips a pulse
+boundary when a wrap lands within rounding of pi.  The pulse axis is padded
+to a static ``max_pulses`` with masked tail pulses at sample T-1.  The
+overlap-add sums each output sample in pulse order in either dtype.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ from torch.profiler import record_function
 from worldtpu_torch import constants as C
 from worldtpu_torch.ops import dft, trig
 from worldtpu_torch.ops.fftutil import minimum_phase
+from worldtpu_torch.ops.interp import interp1
 from worldtpu_torch.ops.ola_kernel import overlap_add
+from worldtpu_torch.ops.seqsum import cumsum_sequential
 
 _Q32 = 4294967296.0
 
@@ -51,24 +57,38 @@ def _time_base(f0, fs, frame_period_s, out_length, lowest_f0, max_pulses):
     coarse_vuv = torch.cat(
         [coarse_vuv, coarse_vuv[:, -1:] * 2 - coarse_vuv[:, -2:-1]], dim=1)
 
-    # uniform knots: the histc search collapses to direct indexing
     t = torch.arange(T, dtype=dt, device=dev) / fs
-    k = torch.clamp((t / frame_period_s).to(torch.int32) + 1, 1, F).long()
-    x0 = k.to(dt) * frame_period_s - frame_period_s
-    s = (t - x0) / frame_period_s
-    f0_lo, f0_hi = coarse_f0[:, k - 1], coarse_f0[:, k]
-    v_lo, v_hi = coarse_vuv[:, k - 1], coarse_vuv[:, k]
-    f0i = f0_lo + s * (f0_hi - f0_lo)
-    vuvi = v_lo + s * (v_hi - v_lo)
+    f64 = dt == torch.float64
+    if f64:      # parity path: the literal histc search over the knots
+        coarse_t = torch.arange(F + 1, dtype=dt, device=dev) * frame_period_s
+        f0i = interp1(coarse_t, coarse_f0, t)
+        vuvi = interp1(coarse_t, coarse_vuv, t)
+    else:
+        # uniform knots: the histc search collapses to direct indexing
+        k = torch.clamp((t / frame_period_s).to(torch.int32) + 1, 1,
+                        F).long()
+        x0 = k.to(dt) * frame_period_s - frame_period_s
+        s = (t - x0) / frame_period_s
+        f0_lo, f0_hi = coarse_f0[:, k - 1], coarse_f0[:, k]
+        v_lo, v_hi = coarse_vuv[:, k - 1], coarse_vuv[:, k]
+        f0i = f0_lo + s * (f0_hi - f0_lo)
+        vuvi = v_lo + s * (v_hi - v_lo)
     vuvi = (vuvi > 0.5).to(dt)
     f0i = torch.where(vuvi == 0.0, torch.full((), C.DEFAULT_F0, dtype=dt,
                                               device=dev), f0i)
 
-    # Q32 fixed point: f0/fs cycles per sample in 1/2^32 units
-    step = (f0i / fs * _Q32 + 0.5).to(torch.int64)
-    fbits = torch.cumsum(step, dim=1) & 0xFFFFFFFF
-    frac = fbits.to(dt) / _Q32
-    carry = fbits[:, 1:] < fbits[:, :-1]                       # [B, T-1]
+    if f64:
+        # double accumulation in order + fmod, as the reference's loop
+        total = cumsum_sequential(f0i * (2.0 * C.PI / fs))
+        wrap = torch.fmod(total, 2.0 * C.PI)
+        frac = wrap / (2.0 * C.PI)
+        carry = torch.abs(wrap[:, 1:] - wrap[:, :-1]) > C.PI
+    else:
+        # Q32 fixed point: f0/fs cycles per sample in 1/2^32 units
+        step = (f0i / fs * _Q32 + 0.5).to(torch.int64)
+        fbits = torch.cumsum(step, dim=1) & 0xFFFFFFFF
+        frac = fbits.to(dt) / _Q32
+        carry = fbits[:, 1:] < fbits[:, :-1]                   # [B, T-1]
 
     # static-size nonzero: rank by cumsum, scatter the sample index to its
     # rank (no host sync); the extra slot takes pulses past max_pulses
@@ -131,9 +151,13 @@ def pulse_responses(pt, shift, ns, vuv_at, valid, spectrogram,
     mp_per, mp_ap = mp_both[:, :P], mp_both[:, P:]
 
     coeff = (2.0 * C.PI * fs / fft_size) * shift
-    # seed-and-rotate cos; the 2-term combine can overshoot |1| by an ulp
-    re2 = torch.clamp(trig.cos_affine(coeff, torch.zeros_like(coeff), K),
-                      -1.0, 1.0)
+    if dt == torch.float64:      # parity path: the literal cosine grid
+        re2 = torch.cos(coeff[..., None]
+                        * torch.arange(K, dtype=dt, device=dev))
+    else:
+        # seed-and-rotate cos; the 2-term combine can overshoot |1| by an ulp
+        re2 = torch.clamp(trig.cos_affine(coeff, torch.zeros_like(coeff), K),
+                          -1.0, 1.0)
     im2 = torch.sqrt(1.0 - re2 * re2)  # |sin|: the reference's :452 quirk
     phase = torch.complex(re2, -im2)
 
@@ -230,6 +254,39 @@ def make_noise(generator, batch, max_pulses, fft_size, dtype=torch.float32,
     normal) from a torch.Generator."""
     return torch.randn((batch, max_pulses, fft_size), generator=generator,
                        dtype=dtype, device=device)
+
+
+def xorshift_noise(ns, fft_size, gen=None):
+    """The reference's synthesis noise for one utterance, from its
+    sequential ``randn()`` stream: pulse i draws ns[i] values (its noise
+    size) into row i of a [len(ns), fft_size] float64 numpy array, the rest
+    zero.  Returns (noise, the generator); a new generator starts at the
+    seed of a fresh process, as the reference's synthesis run does."""
+    from worldtpu_torch.native import XorshiftRandn
+    if gen is None:
+        gen = XorshiftRandn()
+    noise = np.zeros((len(ns), fft_size), np.float64)
+    for i, m in enumerate(np.asarray(ns).tolist()):
+        if m > 0:
+            noise[i, :m] = gen.draw(m)
+    return noise, gen
+
+
+def parity_noise(f0, *, fs, fft_size, frame_period_s, out_length,
+                 max_pulses, gen=None):
+    """The [max_pulses, fft_size] float64 noise (numpy) with which the
+    float64 synthesis of contour f0 [F] reproduces the reference's output:
+    the float64 time base gives each pulse's noise size, and
+    ``xorshift_noise`` draws the stream in pulse order, from ``gen`` (a
+    generator that the analysis dithers have advanced, as in the
+    reference's whole pipeline) or from a fresh one (synthesis alone)."""
+    f0 = torch.as_tensor(np.asarray(f0), dtype=torch.float64)[None]
+    idx, _, n_pulses, _, valid, _ = _time_base(
+        f0, fs, frame_period_s, out_length, fs / fft_size + 1.0, max_pulses)
+    nxt = torch.minimum(torch.arange(max_pulses) + 1,
+                        (n_pulses - 1)[:, None]).clamp(min=0)
+    ns = torch.where(valid, idx.gather(1, nxt) - idx, 0)[0].numpy()
+    return xorshift_noise(ns, fft_size, gen)[0]
 
 
 def estimate_max_pulses(f0, fs, fft_size, out_length, margin=1.15,

@@ -67,7 +67,8 @@ Phases (any failure raises, so the exit code is not 0):
      float64 kernels (the OLA kernel's double instantiation and the
      sequential cumulative sum), counted from 0; both kernels against their
      plain versions at t22's shapes (OLA within 1e-12 relative of
-     index_add_, the cumulative sum equal to numpy.cumsum), their device
+     index_add_; every cumulative-sum launch of t22's D4C and Synthesis
+     equal to numpy.cumsum of its own input), their device
      times, bounds and library calls (index_add_, torch.cumsum); and the
      CLI analyze + synthesize without --f32, --device cuda, with ``jax``
      and ``worldtpu`` blocked.
@@ -1123,8 +1124,9 @@ def main(argv=None):
             raise AssertionError(f"float64 on the card disagrees with the "
                                  f"C++ dumps on {nm}")
         if nm == "t22":
-            first22 = dict(f0=f0_ref, spec=spec_ref, ap=ap_ref, nz=nz,
-                           skw=skw, fs=fsf)
+            first22 = dict(x=xf, tpos=tpos_ref, f0=f0_ref, spec=spec_ref,
+                           ap=ap_ref, nz=nz, skw=skw, fs=fsf, fft=fft_f,
+                           fp_ms=fp_ms)
     f64_counts = dict(_build.launches)
     log(f"float64 path launches (Harvest, CheapTrick, D4C and Synthesis on "
         f"{len(F64_FIXTURES)} utterances, counted from 0): {f64_counts}")
@@ -1186,42 +1188,54 @@ def main(argv=None):
                                  20)))
         del tg64, okm, flat_t, flat_v, acc
 
-        # the sequential cumulative sum at its two shapes on this path: the
-        # time base's one long row, and LinearSmoothing's mirrored spectra
-        # (one row per frame)
-        rng = np.random.RandomState(5)
-        F22 = len(q["f0"])
-        c_worst = 0.0
-        for shape in ((1, T64), (F22, 2049 + 2 * 60)):
-            xs = rng.randn(*shape) * 10.0 ** rng.uniform(-6, 6, shape)
-            got = seqsum.cumsum_sequential_cuda(
-                torch.as_tensor(xs, device=dev)).cpu().numpy()
+        # the sequential cumulative sum at every shape this path gives it
+        # (t22's D4C: LoveTrain's and the coarse bands' cumulative power,
+        # LinearSmoothing's mirrored spectra; the synthesis time base's one
+        # long row): the launches of one D4C and one Synthesis call, each
+        # output against numpy.cumsum of its own input
+        _, c_seen = capture(_build, lambda: (
+            api.D4C(q["fs"], device=dev).compute(
+                q["x"], q["tpos"], q["f0"], q["fft"], dtype=f64),
+            api.Synthesis(q["fs"], q["fft"], q["fp_ms"], device=dev).compute(
+                q["f0"], q["spec"], q["ap"], T64, noise=q["nz"], dtype=f64)))
+        torch.cuda.synchronize()
+        c_seen = [c for c in c_seen if c[0] == "wt_seq_cumsum_f64"]
+        c_worst, c_shapes, scan_same = 0.0, [], True
+        for _, _, (cx, cout, n_rows, n) in c_seen:
+            xs = cx.cpu().numpy().reshape(n_rows, n)
             want = np.cumsum(xs, axis=-1)
-            c_worst = max(c_worst, float(np.abs(got - want).max()))
-            par = torch.cumsum(torch.as_tensor(xs, device=dev), -1)
-            log(f"seq_cumsum {shape}: equal to numpy.cumsum "
-                f"{bool(np.array_equal(got, want))}; torch.cumsum on the "
-                f"card (a parallel scan) equal to it "
-                f"{bool(np.array_equal(par.cpu().numpy(), want))}")
-            if not np.array_equal(got, want):
-                raise AssertionError("the sequential cumulative sum "
-                                     "disagrees with numpy.cumsum")
-        xs_t = torch.as_tensor(xs, device=dev)
-        _, c_seen = capture(_build,
-                            lambda: seqsum.cumsum_sequential_cuda(xs_t))
-        row_t = torch.as_tensor(rng.randn(1, T64), device=dev)
-        _, row_seen = capture(_build,
-                              lambda: seqsum.cumsum_sequential_cuda(row_t))
-        log(f"seq_cumsum on the time base's one row {tuple(row_t.shape)} "
-            f"(a single thread's chain): {alone_ms(row_seen, 20):.4f} ms "
-            f"device time alone; the kernels line times the "
-            f"{tuple(xs_t.shape)} rows of LinearSmoothing  [{card}]")
+            got = cout.cpu().numpy().reshape(n_rows, n)
+            c_shapes.append((n_rows, n))
+            fin = np.isfinite(want)
+            if not np.array_equal(got, want, equal_nan=True):
+                raise AssertionError(f"the sequential cumulative sum "
+                                     f"disagrees with numpy.cumsum at "
+                                     f"{(n_rows, n)}")
+            c_worst = max(c_worst, float(np.abs(got - want)[fin].max()))
+            par = torch.cumsum(cx.reshape(n_rows, n), -1).cpu().numpy()
+            scan_same = scan_same and np.array_equal(par, want,
+                                                     equal_nan=True)
+        log(f"seq_cumsum: {len(c_seen)} launches of t22's float64 D4C and "
+            f"Synthesis, shapes {sorted(set(c_shapes))}: each equal to "
+            f"numpy.cumsum of its input True; torch.cumsum on the card (a "
+            f"parallel scan) equal to it on all of them {scan_same}")
+        if len(c_seen) < 2:
+            raise AssertionError("the float64 D4C and Synthesis launched "
+                                 "the sequential cumulative sum < 2 times")
+        big = max(c_seen, key=lambda c: c[2][2] * c[2][3])
+        row = max(c_seen, key=lambda c: c[2][3])
+        xs_t, row_t = big[2][0], row[2][0]
+        log(f"seq_cumsum on the time base's one row "
+            f"{(row[2][2], row[2][3])} (a single thread's chain): "
+            f"{alone_ms([row], 20):.4f} ms device time alone; the kernels "
+            f"line times the path's largest launch "
+            f"{(big[2][2], big[2][3])}  [{card}]")
         results.append(dict(
             name="seq_cumsum", source="worldtpu_torch/csrc/seq_cumsum.cu",
             replaces="worldtpu/ops/filters.py:373",
             launches=f64_counts["wt_seq_cumsum_f64"],
             launches_main=counts.get("wt_seq_cumsum_f64", 0),
-            max_abs_err=c_worst, ms=alone_ms(c_seen, 50),
+            max_abs_err=c_worst, ms=alone_ms([big], 50),
             call_ms=median_ms(
                 torch, lambda: seqsum.cumsum_sequential_cuda(xs_t), 20),
             plain_ms=median_ms(

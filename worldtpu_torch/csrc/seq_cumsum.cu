@@ -15,14 +15,17 @@
 // one thread per row, in order.  What bounds it is the chain of dependent
 // additions of the longest row (n steps of one double add each), not bytes:
 // rows are independent, so frames (hundreds of rows) fill warps, while the
-// synthesis time base is one long row per utterance.  A parity path pays
-// that; the float32 main path never calls it.
+// synthesis time base is one long row per utterance.  A thread loads eight
+// values ahead of the eight additions that consume them, so the chain
+// waits for the adder and not for memory.  A parity path pays the chain;
+// the float32 main path never calls it.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 64;
+constexpr int kAhead = 8;  // values loaded before they are added
 
 __global__ void __launch_bounds__(kThreads)
     seq_cumsum_kernel(const double* __restrict__ x, double* __restrict__ out,
@@ -31,9 +34,21 @@ __global__ void __launch_bounds__(kThreads)
   if (r >= n_rows) return;
   const double* xr = x + (size_t)r * n;
   double* o = out + (size_t)r * n;
-  double acc = 0.0;
-  for (int i = 0; i < n; ++i) {
-    acc = i == 0 ? xr[0] : __dadd_rn(xr[i], acc);
+  double acc = xr[0];
+  o[0] = acc;
+  int i = 1;
+  for (; i + kAhead <= n; i += kAhead) {
+    double v[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) v[u] = xr[i + u];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      acc = __dadd_rn(acc, v[u]);  // never contracted, never reassociated
+      o[i + u] = acc;
+    }
+  }
+  for (; i < n; ++i) {
+    acc = __dadd_rn(acc, xr[i]);
     o[i] = acc;
   }
 }

@@ -69,9 +69,29 @@ Phases (any failure raises, so the exit code is not 0):
      plain versions at t22's shapes (OLA within 1e-12 relative of
      index_add_; every cumulative-sum launch of t22's D4C and Synthesis
      equal to numpy.cumsum of its own input), their device
-     times, bounds and library calls (index_add_, torch.cumsum); and the
-     CLI analyze + synthesize without --f32, --device cuda, with ``jax``
-     and ``worldtpu`` blocked.
+     times, bounds and library calls (index_add_, torch.cumsum); float64
+     Harvest at length: phase 6's long utterance through
+     HarvestKernel.compute(dtype=torch.float64), its wall, peak device
+     memory and agreement with phase 6's float32 F0 (voicing >= 0.97, F0
+     RMSE <= 1 Hz); and the CLI analyze + synthesize without --f32,
+     --device cuda, with ``jax`` and ``worldtpu`` blocked;
+  8. the codec and corpus streaming on the card: (a) bench.py config 5's
+     corpus (16 bench.synth_utterance_diverse wavs written as 16-bit
+     files) through io.corpus.iter_corpus (the C++ reader, required) in
+     batches of 8 padded to 4096 samples and 16 frames, one geometry per
+     padded length, batch_wav_to_wav (pitch x1.2, duration x1.25),
+     batch k's download and slice_outputs overlapped with batch k+1;
+     checks 16 finite, audible outputs of their slice_outputs lengths, no
+     pulse overflow and one launch of zc, refine, OLA and extend per
+     batch (counted from 0); reports the first pass's wall and later
+     passes with and without the overlap, in turns, and
+     HarvestKernel.compute_corpus against compute_batch (F0 equal bit for
+     bit, walls in turns); (b) the codec in float64 on the C++ dumps of
+     t22, t16, t48 at tests/test_codec.py's tolerances, and in float32 on
+     the main path's spectrogram and aperiodicity against the CPU, with
+     each function's device time; (c) MCD (bench.quality_metrics) against
+     the C++ spectrogram dumps: float64 Harvest + CheapTrick on the card
+     and the float64 codec round trip, each < 0.1 dB; float32 reported.
 
 The line before the last is a JSON object {"kernels": [...]}: for each
 kernel its launches in the main path's run (``launches_main``; zc_events,
@@ -79,9 +99,11 @@ off the main path, counts ``launches`` in its own path's run), its largest
 difference from its plain version, its device time alone (``ms``), its
 wrapper-inclusive time (``call_ms``), its plain version's, its bound and
 what bounds it, the share bound/ms, and the library call's device time
-(null where no single PyTorch call computes the function).  The last
-line is {"ok": true, "device": {...}}.  Without a CUDA device, or outside
-the repository, the script exits non-zero and prints no result.
+(null where no single PyTorch call computes the function), and its
+launches in one pass of phase 8's corpus stream (``launches_corpus``).
+The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
+or outside the repository, the script exits non-zero and prints no
+result.
 """
 
 import argparse
@@ -1252,6 +1274,31 @@ def main(argv=None):
             f"{r['library_ms']:.4f} ms; launches on the float64 path "
             f"{r['launches']}  [{card}]")
 
+    # float64 Harvest at length: phase 6's one long utterance through the
+    # parity path on the card, against phase 6's float32 F0 of it (the
+    # card-vs-CPU gates of phase 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f0_l64, _ = hk_long.compute(x_long, dtype=f64)
+    l64_ms = (time.perf_counter() - t0) * 1000
+    peak64 = torch.cuda.max_memory_allocated() / 2 ** 30
+    v32, v64 = f0_long > 0, f0_l64 > 0
+    agree64 = float((v32 == v64).mean())
+    both64 = v32 & v64
+    rmse64 = float(np.sqrt(np.mean((f0_long[both64] - f0_l64[both64]) ** 2)))
+    log(f"HarvestKernel.compute(dtype=torch.float64), the same "
+        f"{x_long.shape[0] / FS:.2f} s utterance: {l64_ms:.1f} ms (one "
+        f"call), peak device memory {peak64:.2f} GiB; against its float32 "
+        f"F0 on the card: voicing agreement {agree64:.4f} (gate 0.97), F0 "
+        f"RMSE on voiced {rmse64:.4f} Hz (gate 1), max |dF0| "
+        f"{float(np.abs(f0_long[both64] - f0_l64[both64]).max()):.3f} Hz  "
+        f"[{card}]")
+    if (f0_l64.shape != f0_long.shape or not np.isfinite(f0_l64).all()
+            or agree64 < 0.97 or rmse64 > 1.0):
+        raise AssertionError("float64 Harvest at length disagrees with the "
+                             "float32 F0 on the card")
+
     # the CLI without --f32 (float64, the JAX CLI's default) on the card
     with tempfile.TemporaryDirectory() as td:
         pre, syn_w = (str(pathlib.Path(td) / n) for n in ("p64", "y64.wav"))
@@ -1279,6 +1326,13 @@ def main(argv=None):
                 or not np.isfinite(yc).all() or rms_c < 0.01):
             raise AssertionError("cli float64 output")
 
+    # ---- 8. codec and corpus on the card ----
+    corpus_counts = corpus_stream(torch, dev, card)
+    for r in results:
+        r["launches_corpus"] = corpus_counts.get(C_ENTRY[r["name"]], 0)
+    codec_on_card(torch, dev, card, cycles_per_ms, x, f0, geo, ck)
+    mcd_on_card(torch, dev, card)
+
     jaxy = [m for m in sys.modules
             if m in ("jax", "worldtpu") or m.startswith(("jax.", "worldtpu."))]
     if jaxy:
@@ -1294,6 +1348,369 @@ def main(argv=None):
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---- phase 8 ----
+
+# the C entry of each kernel of the kernels line
+C_ENTRY = {"zc": "wt_zc", "refine": "wt_refine_sums", "ola": "wt_ola",
+           "extend": "wt_extend", "zc_events": "wt_zc_events",
+           "ola_f64": "wt_ola_f64", "seq_cumsum": "wt_seq_cumsum_f64"}
+MAIN_KERNELS = ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend")
+CORPUS_UTTS = 16          # bench.py config 5: 2 x its batch of 8
+
+# float32 codec, card against CPU on the same input: the float32
+# tolerances of tests/test_torch_codec.py (port against JAX)
+F32_AP_DB_ATOL = 2e-5
+F32_DEC_AP_RTOL = 5e-6
+F32_CODED_SPEC_REL = 2e-5
+F32_DEC_SPEC_RTOL = 1e-3
+MCD_GATE_DB = 0.1         # ROADMAP.md's quality target, float64
+
+
+def excess(got, want, rtol, atol):
+    """max(|got - want| - (atol + rtol |want|)): <= 0 exactly where
+    numpy.testing.assert_allclose(got, want, rtol, atol) passes."""
+    return float((np.abs(got - want) - (atol + rtol * np.abs(want))).max())
+
+
+def read_codec_dump(path, n_frames, n_bins):
+    """A C++ codec dump t*.codec.gz (the layout tests/conftest.py reads):
+    n_ap and n_dims as int32, then float64 coded aperiodicity [F, n_ap],
+    decoded [F, K], coded envelope [F, n_dims], decoded [F, K]."""
+    import gzip
+    raw = gzip.open(path).read()
+    n_ap, n_dims = (int(v) for v in np.frombuffer(raw[:8], "<i4"))
+    out, o = {"n_ap": n_ap, "n_dims": n_dims}, 8
+    for key, cols in (("coded_ap", n_ap), ("decoded_ap", n_bins),
+                      ("coded_spec", n_dims), ("decoded_spec", n_bins)):
+        out[key] = np.frombuffer(raw[o:o + 8 * n_frames * cols],
+                                 "<f8").reshape(n_frames, cols).copy()
+        o += 8 * n_frames * cols
+    return out
+
+
+def corpus_stream(torch, dev, card):
+    """Phase 8(a): bench.py config 5's corpus shape through the port as a
+    corpus user runs it: CORPUS_UTTS synthetic utterances written as
+    16-bit wavs, io.corpus.iter_corpus (the C++ reader) in batches of
+    BATCH padded to 4096 samples and 16 frames, one HarvestGeometry per
+    padded length, batch_wav_to_wav (pitch x1.2, duration x1.25, static
+    pulse capacity, noise from a seeded generator on the card), batch k's
+    output copied to pinned memory without blocking and cut by
+    slice_outputs while batch k+1 runs.  Gates its outputs, the kernels'
+    launches and the reader; times a first pass, later passes with and
+    without the overlap in turns, and HarvestKernel.compute_corpus beside
+    compute_batch.  Returns the launches of the first pass (from 0)."""
+    from bench import synth_utterance_diverse
+    from worldtpu_torch import _build, constants as C, native
+    from worldtpu_torch.analysis import harvest as H
+    from worldtpu_torch.analysis.cheaptrick import CheapTrickKernel
+    from worldtpu_torch.io import corpus as CO, wav as W_
+    from worldtpu_torch.parallel.batch import batch_wav_to_wav
+    from worldtpu_torch.synthesis import synthesis as S
+
+    ck = CheapTrickKernel(FS)
+    t0 = time.perf_counter()
+    if not native.corpus_reader_built():
+        raise AssertionError("the C++ corpus reader did not build")
+    log(f"corpus: C++ reader built in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as cdir:
+        for i in range(CORPUS_UTTS):
+            W_.wavwrite(pathlib.Path(cdir) / f"lj{i:03d}.wav",
+                        synth_utterance_diverse(FS, i).astype(np.float64), FS)
+        kw_it = dict(batch_size=BATCH, pad_to=4096, frames_to=16)
+        listed = CO.load_corpus(cdir, **kw_it)
+        audio_s = sum(float(b.lengths[b.valid].sum()) for b in listed) / FS
+        want_len = [int((n - 1) * b.frame_period_ms / 1000.0 * FS) + 1
+                    for b in listed for n in b.n_frames[b.valid]]
+        log(f"corpus: {CORPUS_UTTS} utterances, {audio_s:.2f} s of audio, "
+            f"{len(listed)} batches of {BATCH}, padded lengths "
+            f"{[b.x.shape[1] for b in listed]}, frames "
+            f"{[b.F for b in listed]}")
+        gen = torch.Generator(device=dev).manual_seed(8)
+        shapes = {}               # (T, F) -> geometry, sizes, noise
+
+        def setup(b):
+            key = (b.x.shape[1], b.F)
+            if key not in shapes:
+                g = H.HarvestGeometry(FS, key[0], f0_floor=40.0)
+                ol = int((b.F - 1) * 0.005 * DUR * FS) + 1
+                mp = S.capacity_max_pulses(ol, FS,
+                                           f0_cap=C.DEFAULT_F0 * PITCH)
+                shapes[key] = (g, ol, mp, S.make_noise(
+                    gen, b.x.shape[0], mp, ck.fft_size, device=dev))
+            return shapes[key]
+
+        def stream(overlap):
+            outs, ovfs, pending = [], [], None
+
+            def finish(item):
+                b, hy, ho, done = item
+                done.synchronize()
+                outs.extend(b.slice_outputs(hy))
+                ovfs.append(ho)
+
+            for b in CO.iter_corpus(cdir, **kw_it):
+                g, ol, mp, noise = setup(b)
+                xb = torch.from_numpy(b.x).pin_memory().to(
+                    dev, non_blocking=True)
+                y, _, ovf = batch_wav_to_wav(
+                    xb, noise, geo=g, fs=FS, fft_size=ck.fft_size,
+                    max_half_window=ck.max_half_window,
+                    frame_period_s=0.005 * DUR, out_length=ol,
+                    max_pulses=mp, pitch_scale=PITCH, return_overflow=True)
+                if not overlap:
+                    outs.extend(b.slice_outputs(y))
+                    ovfs.append(ovf.cpu())
+                    continue
+                hy = torch.empty(y.shape, pin_memory=True)
+                hy.copy_(y, non_blocking=True)
+                ho = torch.empty(ovf.shape, dtype=ovf.dtype, pin_memory=True)
+                ho.copy_(ovf, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                if pending is not None:
+                    finish(pending)
+                pending = (b, hy, ho, done)
+            if pending is not None:
+                finish(pending)
+            return outs, ovfs
+
+        _build.launches.clear()
+        native.corpus_reads = 0
+        t0 = time.perf_counter()
+        outs, ovfs = stream(True)
+        first_ms = (time.perf_counter() - t0) * 1000
+        counts = dict(_build.launches)
+        reads = native.corpus_reads
+        rms = [float(np.sqrt(np.mean(o.astype(np.float64) ** 2)))
+               for o in outs]
+        log(f"corpus stream, first pass (geometry set-up and first calls): "
+            f"{first_ms:.1f} ms; launches {counts}; batches read by the C++ "
+            f"reader {reads} of {len(listed)}; {len(outs)} outputs, lengths "
+            f"{[len(o) for o in outs]}, rms {min(rms):.4f}-{max(rms):.4f}; "
+            f"pulse overflow {[bool(o.any()) for o in ovfs]}  [{card}]")
+        if (len(outs) != CORPUS_UTTS
+                or [len(o) for o in outs] != want_len
+                or not all(np.isfinite(o).all() for o in outs)
+                or min(rms) <= 0.01):
+            raise AssertionError("corpus stream outputs")
+        if any(bool(o.any()) for o in ovfs):
+            raise AssertionError("corpus stream: pulse capacity overflow")
+        if reads != len(listed):
+            raise AssertionError("the corpus stream did not read with the "
+                                 "C++ reader")
+        for k in MAIN_KERNELS:
+            if counts.get(k, 0) != len(listed):
+                raise AssertionError(f"kernel {k} launched {counts.get(k, 0)}"
+                                     f" times by the corpus stream, not once "
+                                     f"per batch")
+        walls = {"overlapped": [], "not overlapped": []}
+        for mode in ("overlapped", "not overlapped") * 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again, _ = stream(mode == "overlapped")
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t0) * 1000)
+            if len(again) != CORPUS_UTTS:
+                raise AssertionError("corpus stream outputs")
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        log(f"corpus stream, later passes in turns (overlapped, not, ...): "
+            + "; ".join(f"{k} {[round(w, 1) for w in v]} ms, median "
+                        f"{med[k]:.1f} ms = {audio_s / med[k] * 1000:.1f}x "
+                        f"realtime" for k, v in walls.items())
+            + f"; first pass {audio_s / first_ms * 1000:.1f}x  [{card}]")
+
+        # HarvestKernel.compute_corpus over the same batches, padded to
+        # one length (a HarvestKernel holds one geometry), against
+        # compute_batch on each
+        T1 = max(b.x.shape[1] for b in listed)
+        xs = [np.pad(b.x, ((0, 0), (0, T1 - b.x.shape[1]))) for b in listed]
+        hk = H.HarvestKernel(FS, T1, f0_floor=40.0, device=dev)
+        want = [r for xb in xs for r in hk.compute_batch(xb)]
+        got = list(hk.compute_corpus(iter(xs)))
+        same = len(got) == len(want) and all(
+            np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            for a, b in zip(got, want))
+        hw = {"compute_corpus": [], "compute_batch": []}
+        for mode in ("compute_corpus", "compute_batch") * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "compute_corpus":
+                list(hk.compute_corpus(iter(xs)))
+            else:
+                [hk.compute_batch(xb) for xb in xs]
+            hw[mode].append(round((time.perf_counter() - t0) * 1000, 1))
+        log(f"HarvestKernel on the corpus's {len(xs)} batches padded to "
+            f"T={T1}: compute_corpus F0 equal to compute_batch's bit for "
+            f"bit {same}; walls in turns {hw} ms  [{card}]")
+        if not same:
+            raise AssertionError("compute_corpus disagrees with "
+                                 "compute_batch")
+    return counts
+
+
+def codec_on_card(torch, dev, card, cycles_per_ms, x, f0, geo, ck):
+    """Phase 8(b): the codec in float64 on the C++ dumps of F64_FIXTURES
+    at tests/test_codec.py's tolerances, and in float32 on the main path's
+    B=8 spectrogram and aperiodicity (flattened to [B*F, K]) against the
+    port's float32 codec on the CPU, with each function's device time."""
+    from worldtpu_torch import codec as CODEC
+    from worldtpu_torch.analysis.cheaptrick import cheaptrick_frames
+    from worldtpu_torch.analysis.d4c import d4c_frames
+    from worldtpu_torch.io import params as P_
+    fixd = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures"
+    f64 = torch.float64
+    for nm in F64_FIXTURES:
+        f0_ref, _, _ = P_.read_f0(str(fixd / f"{nm}.f0.gz"))
+        spec_ref, meta = P_.read_spectral_envelope(str(fixd / f"{nm}.spec.gz"))
+        ap_ref, _ = P_.read_aperiodicity(str(fixd / f"{nm}.ap.gz"))
+        fsf, fft_f = int(meta["fs"]), meta["fft_size"]
+        d = read_codec_dump(fixd / f"{nm}.codec.gz", len(f0_ref),
+                            fft_f // 2 + 1)
+        kw = dict(fs=fsf, fft_size=fft_f)
+        g = lambda a: torch.as_tensor(a, dtype=f64, device=dev)  # noqa: E731
+        outs = [CODEC.code_aperiodicity(g(ap_ref), **kw),
+                CODEC.decode_aperiodicity(g(d["coded_ap"]), **kw),
+                CODEC.code_spectral_envelope(g(spec_ref), n_dims=d["n_dims"],
+                                             **kw),
+                CODEC.decode_spectral_envelope(g(d["coded_spec"]),
+                                               n_dims=d["n_dims"], **kw)]
+        if any(o.device != dev or o.dtype != f64 for o in outs):
+            raise AssertionError("the codec left the card or float64")
+        ca, da, cs, ds = (o.cpu().numpy() for o in outs)
+        rel_ds = float((np.abs(ds - d["decoded_spec"])
+                        / (np.abs(d["decoded_spec"]) + 1e-20)).max())
+        figs = {"coded ap": (excess(ca, d["coded_ap"], 1e-10, 1e-10),
+                             np.abs(ca - d["coded_ap"]).max()),
+                "decoded ap": (excess(da, d["decoded_ap"], 1e-10, 1e-12),
+                               np.abs(da - d["decoded_ap"]).max()),
+                "coded spec": (excess(cs, d["coded_spec"], 1e-9, 1e-10),
+                               np.abs(cs - d["coded_spec"]).max())}
+        n_ap = CODEC.get_number_of_aperiodicities(fsf)
+        log(f"codec float64 on the card, {nm} ({len(f0_ref)} frames, n_ap "
+            f"{n_ap} (dump {d['n_ap']}), n_dims {d['n_dims']}) vs the C++ "
+            f"dump: " + ", ".join(f"{k} max abs {v[1]:.2e}" for k, v in
+                                  figs.items())
+            + f", decoded spec max rel {rel_ds:.2e} (tests/test_codec.py's "
+            f"tolerances: ap 1e-10, spec 1e-9 / 1e-10, decoded spec 1e-8)")
+        if (n_ap != d["n_ap"] or any(v[0] > 0 for v in figs.values())
+                or not rel_ds < 1e-8):
+            raise AssertionError(f"float64 codec on the card disagrees with "
+                                 f"the C++ dump of {nm}")
+
+    # float32 on the main path's analysis, card against CPU
+    n_dims = 32                   # the fixtures' (the reference's default)
+    kw = dict(fs=FS, fft_size=ck.fft_size)
+    with torch.no_grad():
+        tpos = torch.arange(geo.n_grid(), dtype=torch.float32, device=dev) \
+            * (geo.frame_period / 1000.0)
+        spec = cheaptrick_frames(x, f0, tpos, fs=FS, fft_size=ck.fft_size,
+                                 max_half_window=ck.max_half_window)
+        ap = d4c_frames(x, f0, tpos, fs=FS, fft_size_out=ck.fft_size)
+    spec = spec.reshape(-1, spec.shape[-1]).contiguous()
+    ap = ap.reshape(-1, ap.shape[-1]).contiguous()
+    fns = {
+        "code_aperiodicity": (CODEC.code_aperiodicity, ap, {}),
+        "decode_aperiodicity": (CODEC.decode_aperiodicity,
+                                CODEC.code_aperiodicity(ap, **kw), {}),
+        "code_spectral_envelope": (CODEC.code_spectral_envelope, spec,
+                                   {"n_dims": n_dims}),
+        "decode_spectral_envelope": (
+            CODEC.decode_spectral_envelope,
+            CODEC.code_spectral_envelope(spec, n_dims=n_dims, **kw),
+            {"n_dims": n_dims})}
+    res, ms = {}, {}
+    for nm, (fn, arg, extra) in fns.items():
+        got = fn(arg, **kw, **extra)
+        want = fn(arg.cpu(), **kw, **extra)
+        if got.device != dev:
+            raise AssertionError(f"{nm} left the card")
+        res[nm] = (got.cpu().numpy(), want.numpy())
+        _, n_sync = count_syncs(torch, lambda: fn(arg, **kw, **extra))
+        if n_sync:
+            raise AssertionError(f"{nm} synchronizes the host {n_sync} "
+                                 f"times on the card")
+        # few runs a window: each call launches tens of small kernels, and
+        # the queue behind device_ms's sleep kernel holds only so many
+        ms[nm] = device_ms(torch, cycles_per_ms,
+                           lambda: fn(arg, **kw, **extra), 3)
+    (ca, cac), (da, dac), (cs, csc), (ds, dsc) = res.values()
+    flips = int(((da == 1.0).all(1) != (dac == 1.0).all(1)).sum())
+    errs = {"code_aperiodicity": excess(ca, cac, 0, F32_AP_DB_ATOL),
+            "decode_aperiodicity": excess(da, dac, F32_DEC_AP_RTOL, 0),
+            "code_spectral_envelope": float(np.abs(cs - csc).max())
+            - F32_CODED_SPEC_REL * float(np.abs(csc).max()),
+            "decode_spectral_envelope": excess(ds, dsc, F32_DEC_SPEC_RTOL, 0)}
+
+    def round_trip():
+        return (CODEC.decode_aperiodicity(
+            CODEC.code_aperiodicity(ap, **kw), **kw),
+            CODEC.decode_spectral_envelope(CODEC.code_spectral_envelope(
+                spec, n_dims=n_dims, **kw), n_dims=n_dims, **kw))
+    rt_ms = wall_ms(torch, round_trip, 5)
+    rt_ap, rt_sp = (t.cpu().numpy() for t in round_trip())
+    cpu_ap = CODEC.decode_aperiodicity(CODEC.code_aperiodicity(
+        ap.cpu(), **kw), **kw).numpy()
+    cpu_sp = CODEC.decode_spectral_envelope(CODEC.code_spectral_envelope(
+        spec.cpu(), n_dims=n_dims, **kw), n_dims=n_dims, **kw).numpy()
+    log(f"codec float32 on the card, the main path's spectrogram and "
+        f"aperiodicity {tuple(spec.shape)} (n_dims {n_dims}), each function "
+        f"on the same input as the port's float32 codec on the CPU: "
+        + ", ".join(f"{k} {ms[k]:.4f} ms device (over its tolerance by "
+                    f"{errs[k]:.2e}: <= 0 passes)" for k in fns)
+        + f"; unvoiced-rule flips {flips}; round trip {rt_ms:.2f} ms wall, "
+        f"against the CPU's round trip: ap max rel "
+        f"{float((np.abs(rt_ap - cpu_ap) / cpu_ap).max()):.2e}, spec max rel "
+        f"{float((np.abs(rt_sp - cpu_sp) / cpu_sp).max()):.2e}  [{card}]")
+    if flips or any(v > 0 for v in errs.values()):
+        raise AssertionError("the float32 codec on the card disagrees with "
+                             "the CPU")
+
+
+def mcd_on_card(torch, dev, card):
+    """Phase 8(c): mel-cepstral distortion (bench.quality_metrics) against
+    the C++ spectrogram dumps: the card's float64 CheapTrick on its own
+    float64 F0 and the card's float64 codec round trip (against the
+    dump's decoded spectrogram), gated < MCD_GATE_DB; float32 F0 and
+    CheapTrick on the card, reported."""
+    from bench import quality_metrics
+    from worldtpu_torch import api, codec as CODEC
+    from worldtpu_torch.io import params as P_, wav as W_
+    fixd = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures"
+    f64 = torch.float64
+    for nm in F64_FIXTURES:
+        xf, fsf, _ = W_.wavread(str(fixd / f"{nm}.wav"))
+        f0_ref, _, _ = P_.read_f0(str(fixd / f"{nm}.f0.gz"))
+        spec_ref, meta = P_.read_spectral_envelope(str(fixd / f"{nm}.spec.gz"))
+        d = read_codec_dump(fixd / f"{nm}.codec.gz", len(f0_ref),
+                            meta["fft_size"] // 2 + 1)
+        har = api.Harvest(fsf, api.HarvestOption(f0_floor=40.0), device=dev)
+        ct = api.CheapTrick(fsf, device=dev)
+        q = {}
+        for dt, key in ((f64, "float64"), (torch.float32, "float32")):
+            tp, f0_ = har.compute(xf, dtype=dt)
+            sp = ct.compute(xf, tp, f0_, dtype=dt).cpu().numpy()
+            q[key] = quality_metrics(f0_, f0_ref, sp, spec_ref)
+        n = d["n_dims"]
+        kw = dict(fs=fsf, fft_size=meta["fft_size"], n_dims=n)
+        dec = CODEC.decode_spectral_envelope(CODEC.code_spectral_envelope(
+            torch.as_tensor(spec_ref, dtype=f64, device=dev), **kw), **kw)
+        dec = dec.cpu().numpy()
+        q["codec"] = quality_metrics(f0_ref, f0_ref, dec, d["decoded_spec"])
+        q["codec loss"] = quality_metrics(f0_ref, f0_ref, dec, spec_ref)
+        log(f"MCD on the card against the C++ dumps, {nm}: float64 "
+            f"Harvest + CheapTrick {q['float64']}, float64 codec round trip "
+            f"against the dump's decoded spectrogram {q['codec']['mcd_db']} "
+            f"dB (gates {MCD_GATE_DB} dB); reported: float32 Harvest + "
+            f"CheapTrick {q['float32']}, the codec's own loss (round trip "
+            f"against the spectrogram) {q['codec loss']['mcd_db']} dB  "
+            f"[{card}]")
+        if not (q["float64"]["mcd_db"] < MCD_GATE_DB
+                and q["codec"]["mcd_db"] < MCD_GATE_DB):
+            raise AssertionError(f"float64 MCD on {nm} is not under "
+                                 f"{MCD_GATE_DB} dB")
 
 
 if __name__ == "__main__":

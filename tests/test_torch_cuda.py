@@ -616,3 +616,54 @@ def test_zc_kernel_exact_on_speechlike(dev, dur, layout):
     k = TZ.band_candidates_cuda(filt, bounds, **args)
     p = TZ.band_candidates_plain(filt, bounds, **args)
     assert torch.equal(k, p) and int((p > 0).sum()) > 0
+
+
+def test_compute_corpus_on_card(dev):
+    """compute_corpus on the card (pinned non-blocking downloads behind an
+    event) equals compute_batch on the card bit for bit, and the corpus
+    path's batches (numpy) go to the card named by the kernel's device."""
+    fs = 22050
+    xs = [_vowels(fs, 2), 0.5 * _vowels(fs, 2)[::-1].copy()]
+    hk = TH.HarvestKernel(fs, xs[0].shape[1], f0_floor=40.0, device=dev)
+    want = [r for x in xs for r in hk.compute_batch(x)]
+    _build.launches.clear()
+    got = list(hk.compute_corpus(iter(xs)))
+    assert _build.launches["wt_zc"] == 2 and _build.launches["wt_extend"] == 2
+    assert len(got) == len(want) == 4
+    for (f0, tpos), (wf0, wtpos) in zip(got, want):
+        np.testing.assert_array_equal(f0, wf0)
+        np.testing.assert_array_equal(tpos, wtpos)
+    assert (got[0][0] > 0).mean() > 0.3
+
+
+def test_codec_on_card_matches_cpu(dev):
+    """The codec on CUDA tensors stays on the card and agrees with the CPU
+    on the same seeded inputs, at tests/test_torch_codec.py's float32
+    tolerances (coded aperiodicity 2e-5 dB; decoded aperiodicity 5e-6 and
+    decoded envelope 1e-3 relative; coded envelope 2e-5 of its largest
+    magnitude) and at 1e-12 of the largest magnitude in float64."""
+    from worldtpu_torch import codec
+    rng = np.random.RandomState(4)
+    kw = dict(fs=22050, fft_size=1024)
+    for dt in (torch.float32, torch.float64):
+        spec = torch.tensor(10.0 ** rng.uniform(-8, 0, (300, 513)), dtype=dt)
+        ap = torch.tensor(10.0 ** rng.uniform(-3, 0, (300, 513)), dtype=dt)
+        cases = (
+            (codec.code_aperiodicity, ap, {}, "abs", 2e-5),
+            (codec.decode_aperiodicity, codec.code_aperiodicity(ap, **kw),
+             {}, "rel", 5e-6),
+            (codec.code_spectral_envelope, spec, {"n_dims": 31}, "of max",
+             2e-5),
+            (codec.decode_spectral_envelope,
+             codec.code_spectral_envelope(spec, n_dims=31, **kw),
+             {"n_dims": 31}, "rel", 1e-3))
+        for fn, arg, extra, kind, tol in cases:
+            got = fn(arg.to(dev), **kw, **extra)
+            want = fn(arg, **kw, **extra)
+            assert got.device == dev and got.dtype == dt
+            d = (got.cpu() - want).abs()
+            if dt == torch.float64:
+                kind, tol = "of max", 1e-12
+            err = {"abs": d.max(), "rel": (d / want.abs()).max(),
+                   "of max": d.max() / want.abs().max()}[kind]
+            assert float(err) <= tol, (fn.__name__, dt, float(err))

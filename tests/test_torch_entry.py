@@ -200,7 +200,7 @@ def test_world_copy_synthesis_regrow(monkeypatch):
     assert np.isfinite(y).all() and np.sqrt(np.mean(y ** 2)) > 0.01
 
 
-def test_f64_raises(tmp_path):
+def test_f64_entry_points_run_the_parity_path(tmp_path):
     """The three entry points that raised NotImplementedError for float64
     while it was not ported now run the parity path (case for case: the
     Harvest facade, World.copy_synthesis, the CLI without --f32); what
@@ -325,7 +325,8 @@ def test_entry_points_import_without_jax():
         "import worldtpu_torch, worldtpu_torch.api, worldtpu_torch.cli\n"
         "from worldtpu_torch import World, Harvest\n"
         "from worldtpu_torch.analysis import contour, harvest\n"
-        "from worldtpu_torch.io import params, wav\n"
+        "from worldtpu_torch.io import corpus, params, wav\n"
+        "from worldtpu_torch import codec, native\n"
         "from worldtpu_torch.metrics import MetricsRecorder\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.startswith(('jax', 'worldtpu.'))))"))

@@ -7,10 +7,14 @@ A port of the JAX package ``worldtpu`` (which stays the reference): B padded
 wavs -> Harvest F0 (with the on-device contour chain) -> pitch scale ->
 CheapTrick + D4C -> pulse/noise synthesis -> B wavs, as
 ``worldtpu_torch.parallel.batch.batch_wav_to_wav``.  Files and metrics
-go through ``io`` and ``metrics``.  The user entry points
+go through ``io`` and ``metrics``; a directory of wavs streams as padded
+batches through ``io.corpus`` (``iter_corpus``, with a threaded C++
+reader) into ``batch_wav_to_wav`` or ``HarvestKernel.compute_corpus``;
+``codec`` compresses spectral envelopes (mel cepstra) and aperiodicity
+(coarse bands) and back.  The user entry points
 mirror ``worldtpu``'s: the facades of ``api`` (exported here: Harvest,
 CheapTrick, D4C, Synthesis, World and their options), ``HarvestKernel``,
-and the CLI ``python -m worldtpu_torch.cli``.
+the codec functions, and the CLI ``python -m worldtpu_torch.cli``.
 
 Layout mirrors ``worldtpu``: ``ops/`` (DSP primitives and the kernel
 wrappers ``zc_kernel``, ``refine_kernel``, ``ola_kernel``,
@@ -23,9 +27,10 @@ Importing the package sets float32 matmuls and cuDNN convolutions to full
 f32 (no TF32): the reference is true f32, and TF32 keeps ~3 digits.
 The package imports neither JAX nor anything of ``worldtpu``: it keeps its
 own copies of the numpy-only modules it needs (``io.wav``, ``io.params``,
-``metrics``, ``analysis.contour``, ``analysis.dither``) and of its C
-helpers (``native``: the contour's smoother ``csrc/filter_f0.c``, the
-reference's randn() stream and int-truncating sum ``csrc/parity.c``), held
+``io.corpus``, ``metrics``, ``analysis.contour``, ``analysis.dither``) and
+of its host helpers (``native``: the contour's smoother
+``csrc/filter_f0.c``, the reference's randn() stream and int-truncating
+sum ``csrc/parity.c``, the corpus reader ``csrc/corpusio.cpp``), held
 equal to ``worldtpu``'s by the tests.
 """
 

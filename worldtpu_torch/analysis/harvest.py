@@ -621,11 +621,13 @@ class HarvestKernel(torch.nn.Module):
     period, on the device of ``device`` (or of the input tensor when
     ``device`` is None).
 
-    ``forward`` keeps everything on the device; ``compute`` and
-    ``compute_batch`` mirror ``worldtpu.analysis.harvest.HarvestKernel``
-    and return numpy.  float32 (the default here; the JAX class defaults
-    to float64) is the production path: input on the card always takes the
-    device contour chain, CPU input longer than HOST_CONTOUR_FRAMES frames
+    ``forward`` keeps everything on the device; ``compute``,
+    ``compute_batch`` and ``compute_corpus`` mirror
+    ``worldtpu.analysis.harvest.HarvestKernel`` (without ``chunk`` and
+    ``contour_on``: see ``compute_batch``) and return numpy.  float32 (the
+    default here; the JAX class defaults to float64) is the production
+    path: input on the card always takes the device contour chain, CPU
+    input longer than HOST_CONTOUR_FRAMES frames
     of the 1 ms grid the numpy float64 chain (``analysis.contour``)
     instead, since the dense chain's section layout grows as F^2.  float64
     is the parity path (``harvest_parity``), on the card too: the
@@ -664,36 +666,115 @@ class HarvestKernel(torch.nn.Module):
                                   dtype)[0]
 
     def compute_batch(self, x_batch, dtype=torch.float32,
-                      check_capacity=False):
+                      transfer_dtype=None, check_capacity=False):
         """Harvest over [B, x_length] utterances -> [(f0, tpos)] per
-        utterance (float64 numpy).  ``check_capacity`` (float32: float64
-        runs no zc kernel) first counts the zc event-buffer overflows and
-        raises ZcCapacityError if any utterance has one."""
+        utterance (float64 numpy).
+
+        ``transfer_dtype`` (e.g. torch.float16) narrows the candidates and
+        scores that the host contour branch (CPU input past
+        HOST_CONTOUR_FRAMES) hands to numpy, as the JAX package narrows
+        its host download: clipped to [0, the type's max], cast, then read
+        as float64 (~5e-4 relative F0 quantization; scores past the
+        type's range saturate, which only reorders near-ties).  The device
+        contour chain downloads only F0 and ignores it.
+        ``check_capacity`` (float32: float64 runs no zc kernel) first
+        counts the zc event-buffer overflows and raises ZcCapacityError if
+        any utterance has one.
+
+        Against ``worldtpu``'s signature, ``chunk`` and ``contour_on`` are
+        absent: ``chunk`` sized the JAX package's ``lax.map`` over frame
+        chunks, and every stage here runs over all frames at once;
+        ``contour_on`` is decided by where the input lies (the card always
+        takes the device chain, the CPU the numpy chain past
+        HOST_CONTOUR_FRAMES), so no caller can send a batch on the card
+        through the host by hand."""
         check_dtype(dtype)
         x = as_tensor(x_batch, self.device, dtype)
-        with torch.no_grad():
-            if dtype == torch.float64:
-                f0 = harvest_parity(x, geo=self.geo).cpu().numpy()
-                return [(f0[i], self._tpos()) for i in range(len(f0))]
-            if check_capacity:
+        if dtype == torch.float64:
+            return self._parity(x)
+        if check_capacity:
+            with torch.no_grad():
                 v = zc_capacity_violations_batch(x, geo=self.geo).cpu()
-                if bool(v.any()):
-                    bad = torch.nonzero(v)[:, 0].tolist()
-                    raise ZcCapacityError(
-                        f"zc event buffer ({self.geo.e_max} events per band "
-                        f"and crossing type) overflowed for utterances "
-                        f"{bad}, in {v[bad].tolist()} (band, type) pairs; "
-                        f"the input's band-limited crossing rate is outside "
-                        f"Harvest's model (a full-band chirp or a noise "
-                        f"burst?)")
-            if (x.device.type != "cpu"
-                    or self.geo.f0_length <= HOST_CONTOUR_FRAMES):
-                f0, _ = self(x)
-                f0 = f0.cpu().numpy().astype(np.float64)
-                return [(f0[i], self._tpos()) for i in range(len(f0))]
-            mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-            cand, score = harvest_device_stages(x, mean, geo=self.geo)
-            cand = cand.numpy().astype(np.float64)
-            score = score.numpy().astype(np.float64)
-        return [(host_contour(cand[i], score[i], self.geo), self._tpos())
-                for i in range(len(cand))]
+            if bool(v.any()):
+                bad = torch.nonzero(v)[:, 0].tolist()
+                raise ZcCapacityError(
+                    f"zc event buffer ({self.geo.e_max} events per band "
+                    f"and crossing type) overflowed for utterances "
+                    f"{bad}, in {v[bad].tolist()} (band, type) pairs; "
+                    f"the input's band-limited crossing rate is outside "
+                    f"Harvest's model (a full-band chirp or a noise "
+                    f"burst?)")
+        return self._enqueue(x, transfer_dtype)()
+
+    def compute_corpus(self, batches, dtype=torch.float32,
+                       transfer_dtype=None):
+        """Harvest over an iterable of [B, x_length] batches (numpy or
+        tensors): a generator of (f0, tpos) per utterance, in input order,
+        each as ``compute_batch`` gives it.
+
+        Batch k+1's Harvest is enqueued before batch k's results are
+        handed out, and the iterable is read one batch ahead, never more.
+        On the card, batch k's F0 goes to pinned host memory by a
+        non-blocking copy behind an event recorded right after its work,
+        and only that event is waited on before k is read, so k's download
+        and unpacking overlap k+1's queued work (the contour chain syncs
+        the host inside each batch, so little of the device work overlaps
+        the host's).  float64 batches take ``harvest_parity`` one batch at
+        a time, as ``compute_batch`` does.  ``chunk`` and ``contour_on``
+        are absent, as in ``compute_batch``."""
+        check_dtype(dtype)
+        pending = None
+        for xb in batches:
+            x = as_tensor(xb, self.device, dtype)
+            if dtype == torch.float64:
+                yield from self._parity(x)
+                continue
+            queued = self._enqueue(x, transfer_dtype)
+            if pending is not None:
+                yield from pending()
+            pending = queued
+        if pending is not None:
+            yield from pending()
+
+    def _parity(self, x):
+        with torch.no_grad():
+            f0 = harvest_parity(x, geo=self.geo).cpu().numpy()
+        return [(f0[i], self._tpos()) for i in range(len(f0))]
+
+    def _enqueue(self, x, transfer_dtype):
+        """Start the float32 Harvest of x [B, x_length]; returns a function
+        that waits for it and gives [(f0, tpos)] per utterance."""
+        tpos = self._tpos()
+        with torch.no_grad():
+            if (x.device.type == "cpu"
+                    and self.geo.f0_length > HOST_CONTOUR_FRAMES):
+                mean = torch.zeros(x.shape[0], dtype=x.dtype)
+                cand, score = (
+                    _narrow(t, transfer_dtype).to(torch.float64).numpy()
+                    for t in harvest_device_stages(x, mean, geo=self.geo))
+                return lambda: [(host_contour(c, s, self.geo), tpos)
+                                for c, s in zip(cand, score)]
+            f0, _ = self(x)
+        done = None
+        if x.device.type != "cpu":
+            host = torch.empty(f0.shape, dtype=f0.dtype, pin_memory=True)
+            host.copy_(f0, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            f0 = host
+
+        def finish():
+            if done is not None:
+                done.synchronize()
+            f0s = f0.numpy().astype(np.float64)
+            return [(f0s[i], tpos) for i in range(len(f0s))]
+        return finish
+
+
+def _narrow(t, transfer_dtype):
+    """t clipped to [0, the largest finite value of transfer_dtype] and
+    cast to it (t itself when transfer_dtype is None): the JAX package's
+    narrowing of the host contour's download."""
+    if transfer_dtype is None:
+        return t
+    return t.clamp(0.0, torch.finfo(transfer_dtype).max).to(transfer_dtype)

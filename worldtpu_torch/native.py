@@ -4,12 +4,16 @@ The port's copies of the helpers of ``worldtpu/native``: the F0 smoother
 (its ``worldtpu_filter_f0``, ``csrc/filter_f0.c``) and, for the float64
 parity path, the reference's xorshift ``randn()`` stream and Harvest's
 int-truncating sum (its ``XorshiftRandn`` and ``int_trunc_sum``,
-``csrc/parity.c``).  The sources are built at first use into one library
-under ``build/worldtpu_torch/host/<hash>/`` at the repository root, keyed
-by a hash of the sources and flags, and loaded with ctypes.  Without a C
-compiler (or a writable build directory) every entry runs a Python loop
-that gives the same bits, only slower (``filter_f0`` returns None and its
-caller runs the loop).
+``csrc/parity.c``), and the threaded batch WAV reader of the corpus
+loader (its ``load_wavs_batch``, ``csrc/corpusio.cpp``).  The C sources
+are built at first use with ``cc`` into one library, the C++ reader with
+``c++`` into a second, each under ``build/worldtpu_torch/host/<hash>/``
+at the repository root, keyed by a hash of its sources and flags, and
+loaded with ctypes.  Without a compiler (or a writable build directory)
+every C entry runs a Python loop that gives the same bits, only slower
+(``filter_f0`` returns None and its caller runs the loop), and
+``load_wavs_batch`` returns None (``io.corpus`` then reads each file in
+Python, to the same samples).
 """
 
 from __future__ import annotations
@@ -27,8 +31,33 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SRCS = (_CSRC / "filter_f0.c", _CSRC / "parity.c")
 _BUILD = _CSRC.parent.parent / "build" / "worldtpu_torch" / "host"
 _CFLAGS = ("-O2", "-ffp-contract=off", "-fPIC", "-shared")
+_CPP_SRC = _CSRC / "corpusio.cpp"
+_CPP_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared", "-pthread")
 _LIB = None
 _TRIED = False
+_CPP_LIB = None
+_CPP_TRIED = False
+
+#: batches that load_wavs_batch decoded with the C++ reader (a plain count,
+#: so a run can show which reader the corpus loader took)
+corpus_reads = 0
+
+
+def _compile(compiler, flags, srcs, name):
+    """Path of the shared library built from srcs with compiler and flags
+    under _BUILD/<hash of flags and sources>/name (built once)."""
+    h = hashlib.sha256(" ".join((compiler, *flags)).encode()
+                       + b"".join(src.read_bytes() for src in srcs))
+    out_dir = _BUILD / h.hexdigest()[:16]
+    so = out_dir / name
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            subprocess.run([compiler, *flags, *map(str, srcs), "-o",
+                            f"{tmp}/lib.so"], check=True,
+                           capture_output=True, timeout=120)
+            os.replace(f"{tmp}/lib.so", so)
+    return so
 
 
 def _build_and_load():
@@ -36,19 +65,9 @@ def _build_and_load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    h = hashlib.sha256(" ".join(_CFLAGS).encode()
-                       + b"".join(src.read_bytes() for src in _SRCS))
-    out_dir = _BUILD / h.hexdigest()[:16]
-    so = out_dir / "libworldtpu_host.so"
     try:
-        if not so.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-                subprocess.run(["cc", *_CFLAGS, *map(str, _SRCS), "-o",
-                                f"{tmp}/lib.so"], check=True,
-                               capture_output=True, timeout=120)
-                os.replace(f"{tmp}/lib.so", so)
-        lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(str(_compile("cc", _CFLAGS, _SRCS,
+                                       "libworldtpu_host.so")))
         lib.wt_filter_f0.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double]
@@ -138,3 +157,53 @@ def int_trunc_sum(x):
     for v in x:
         acc = int(acc + v)
     return float(acc)
+
+
+def _build_and_load_cpp():
+    """The C++ corpus reader's library, or None if it cannot be built."""
+    global _CPP_LIB, _CPP_TRIED
+    if _CPP_TRIED:
+        return _CPP_LIB
+    _CPP_TRIED = True
+    try:
+        lib = ctypes.CDLL(str(_compile("c++", _CPP_FLAGS, (_CPP_SRC,),
+                                       "libworldtpu_corpusio.so")))
+        lib.worldtpu_load_wavs.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int32]
+        lib.worldtpu_load_wavs.restype = ctypes.c_int64
+        _CPP_LIB = lib
+    except (OSError, subprocess.SubprocessError):
+        _CPP_LIB = None
+    return _CPP_LIB
+
+
+def corpus_reader_built():
+    """Whether the C++ corpus reader is available (built at first call)."""
+    return _build_and_load_cpp() is not None
+
+
+def load_wavs_batch(paths, T, n_threads=8):
+    """Read mono PCM wavs into a zero-padded [len(paths), T] float32 batch
+    with the threaded C++ reader.  Returns (x, lengths, rates, bits), or
+    None if the reader cannot be built (the caller reads in Python).  A
+    file it cannot decode leaves lengths[i] == -1 and a zero row.  The
+    port's copy of ``worldtpu.native.load_wavs_batch``."""
+    global corpus_reads
+    lib = _build_and_load_cpp()
+    if lib is None:
+        return None
+    n = len(paths)
+    x = np.zeros((n, T), np.float32)
+    lengths = np.empty(n, np.int64)
+    rates = np.empty(n, np.int32)
+    bits = np.empty(n, np.int32)
+    arr = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
+    lib.worldtpu_load_wavs(
+        arr, n, T, x.ctypes.data_as(ctypes.c_void_p),
+        lengths.ctypes.data_as(ctypes.c_void_p),
+        rates.ctypes.data_as(ctypes.c_void_p),
+        bits.ctypes.data_as(ctypes.c_void_p), n_threads)
+    corpus_reads += 1
+    return x, lengths, rates, bits

@@ -91,7 +91,30 @@ Phases (any failure raises, so the exit code is not 0):
      the main path's spectrogram and aperiodicity against the CPU, with
      each function's device time; (c) MCD (bench.quality_metrics) against
      the C++ spectrogram dumps: float64 Harvest + CheapTrick on the card
-     and the float64 codec round trip, each < 0.1 dB; float32 reported.
+     and the float64 codec round trip, each < 0.1 dB; float32 reported;
+  9. long audio on the card (longaudio.LongPipeline, analysis.longform.
+     LongHarvest) on one 10-minute recording, bench.synth_utterance_diverse
+     utterances joined to 600 s at 22.05 kHz, f0_floor 40, Harvest chunks
+     of 8 s with 1 s halos, synthesis chunks of 1000 frames, pitch x1.2,
+     duration x1.25: (a) LongHarvest against the unchunked Harvest with
+     the same host contour, on tests/test_longform.py's 60 s signal (its
+     gates: voicing identical, F0 RMSE < 0.1 Hz, max < 5 Hz) and on the
+     recording's first minute of whole utterances (voicing agreement >=
+     0.99, median |dF0| < 0.01 Hz; HarvestKernel.compute's device chain
+     reported beside it, with both peaks of device memory), and
+     copy_synthesis against the unchunked CheapTrick + D4C + synthesis on
+     its F0 with the same indexed_noise rows (pulse positions identical;
+     100 ms windowed relative error q99 < 1e-3 and q90 < 0.1; block
+     analysis frames that differ from the unchunked analysis counted);
+     (b) the 600 s recording, sequential and parallel=True in turns (finite, rms > 0.01, no pulse overflow, F0 identical between
+     the modes, waveforms within (a)'s gates; each mode's wall and
+     realtime factor; LongHarvest's wall split into device stages,
+     downloads and the host contour; host syncs per chunk; zc, refine and
+     OLA launches counted from 0; peak device memory within the first
+     150 s run's peak plus the input and F0 bytes that grow, plus 5%);
+     (c) OLA on one parallel group's [8, Pmax, fft] and zc and refine on
+     two LongHarvest windows [2, 220,500] against their plain versions at
+     phase 4's tolerances.
 
 The line before the last is a JSON object {"kernels": [...]}: for each
 kernel its launches in the main path's run (``launches_main``; zc_events,
@@ -100,7 +123,8 @@ difference from its plain version, its device time alone (``ms``), its
 wrapper-inclusive time (``call_ms``), its plain version's, its bound and
 what bounds it, the share bound/ms, and the library call's device time
 (null where no single PyTorch call computes the function), and its
-launches in one pass of phase 8's corpus stream (``launches_corpus``).
+launches in one pass of phase 8's corpus stream (``launches_corpus``) and
+in phase 9's first sequential 600 s run (``launches_long``).
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or outside the repository, the script exits non-zero and prints no
 result.
@@ -1333,6 +1357,11 @@ def main(argv=None):
     codec_on_card(torch, dev, card, cycles_per_ms, x, f0, geo, ck)
     mcd_on_card(torch, dev, card)
 
+    # ---- 9. long audio on the card ----
+    long_counts = long_audio(torch, dev, card, cycles_per_ms)
+    for r in results:
+        r["launches_long"] = long_counts.get(C_ENTRY[r["name"]], 0)
+
     jaxy = [m for m in sys.modules
             if m in ("jax", "worldtpu") or m.startswith(("jax.", "worldtpu."))]
     if jaxy:
@@ -1711,6 +1740,466 @@ def mcd_on_card(torch, dev, card):
                 and q["codec"]["mcd_db"] < MCD_GATE_DB):
             raise AssertionError(f"float64 MCD on {nm} is not under "
                                  f"{MCD_GATE_DB} dB")
+
+
+# ---- phase 9 ----
+
+LONG_S = 600              # one 10-minute recording
+PARITY_S = 60             # its first minute, against the unchunked path
+BOUND_S = 150             # its first 150 s: fills a 16-chunk Harvest batch
+LONG_FLOOR = 40.0
+LONG_CHUNK_FRAMES = 1000
+HARVEST_CHUNK_MS, HARVEST_HALO_MS = 8000, 1000
+LONG_SEED = 7
+# chunked against unchunked, 100 ms windows: q99 of the relative error;
+# and every windowed comparison's q90 (a noise desync past the midpoint)
+PARITY_Q99, WINDOW_Q90 = 1e-3, 0.1
+# tests/test_longform.py's chunked-against-unchunked F0 gates (Hz), on
+# that test's own 60 s signal; on the recording's first minute, where the
+# chunk windows' float32 rounding moves Harvest's knife-edge contour
+# decisions (PERF.md, section 6), voicing agreement and the median F0
+# difference
+LONG_F0_RMSE, LONG_F0_MAX = 0.1, 5.0
+REC_VOICING, REC_F0_MEDIAN = 0.99, 0.01
+TEST_SIGNAL_S = 60.0
+MEM_MARGIN = 0.05
+
+
+def long_recording(seconds):
+    """bench.synth_utterance_diverse(FS, i) for i = 0, 1, ... joined until
+    ``seconds`` of audio, cut there: (float32 samples, the end sample of
+    each utterance)."""
+    from bench import synth_utterance_diverse
+    parts, n = [], 0
+    while n < seconds * FS:
+        parts.append(synth_utterance_diverse(FS, len(parts)))
+        n += len(parts[-1])
+    return (np.concatenate(parts)[:int(seconds * FS)].astype(np.float32),
+            np.cumsum([len(w) for w in parts]))
+
+
+def long_utterance(fs, dur, seed=0):
+    """tests/test_longform.py's 60 s test signal (harmonics of a slow F0
+    sweep, a noise gap, a silent tail)."""
+    n = int(fs * dur)
+    t = np.arange(n) / fs
+    f0 = 170 * 2 ** ((40 / 1200) * np.sin(2 * np.pi * 0.35 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / fs
+    rng = np.random.RandomState(seed)
+    x = np.zeros(n)
+    for k in range(1, 12):
+        x += np.sin(k * phase) / k
+    x /= np.abs(x).max() * 1.4
+    g0, g1 = int(0.42 * n), int(0.47 * n)
+    x[g0:g1] = 0.003 * rng.randn(g1 - g0)
+    x += 0.002 * rng.randn(n)
+    x[-int(0.4 * fs):] = 0.0
+    return x.astype(np.float32)
+
+
+def windowed_rel(yc, yu):
+    """Relative error of yc against yu in 100 ms windows, the floor a
+    thousandth of the median window RMS (tests/test_longaudio.py)."""
+    yc, yu = yc.astype(np.float64), yu.astype(np.float64)
+    w = int(0.1 * FS)
+    n = (len(yu) // w) * w
+    dw = np.sqrt(((yc[:n] - yu[:n]).reshape(-1, w) ** 2).mean(axis=1))
+    uw = np.sqrt((yu[:n].reshape(-1, w) ** 2).mean(axis=1))
+    return dw / np.maximum(uw, np.median(uw) * 1e-3)
+
+
+def long_audio(torch, dev, card, cycles_per_ms):
+    """Phase 9: long audio on the card.  (a) the first PARITY_S s of the
+    recording: LongHarvest against the unchunked HarvestKernel.compute,
+    and LongPipeline.copy_synthesis against the unchunked CheapTrick, D4C
+    and synthesis on its F0 with the same indexed_noise rows (pulses
+    identical, windowed error); (b) the whole LONG_S s recording through
+    LongPipeline.copy_synthesis (pitch x1.2, duration x1.25), sequential
+    and parallel in turns, with its walls, the split of LongHarvest's, the
+    host syncs per chunk, the kernels' launches and the bounded device
+    memory against the first BOUND_S s; (c) the OLA, zc and refine kernels
+    against their plain versions at this path's shapes.  Returns the
+    launches of the first sequential LONG_S s run (from 0)."""
+    from worldtpu_torch import _build
+    from worldtpu_torch import longaudio as LA
+    from worldtpu_torch.analysis import harvest as H
+    from worldtpu_torch.analysis.cheaptrick import cheaptrick_frames
+    from worldtpu_torch.analysis.d4c import d4c_frames
+    from worldtpu_torch.ops import ola_kernel, refine_kernel, zc_kernel
+    from worldtpu_torch.synthesis import noise as N
+    from worldtpu_torch.synthesis import synthesis as S
+
+    t_phase = time.perf_counter()
+    rec, ends = long_recording(LONG_S)
+    n_utts = len(ends)
+    lp = LA.LongPipeline(FS, f0_floor=LONG_FLOOR,
+                         chunk_frames=LONG_CHUNK_FRAMES,
+                         harvest_chunk_ms=HARVEST_CHUNK_MS,
+                         harvest_halo_ms=HARVEST_HALO_MS, device=dev)
+    lh = lp.harvest
+    syn = dict(seed=LONG_SEED, pitch_scale=PITCH, duration_scale=DUR)
+    log(f"long audio: {n_utts} utterances joined, {len(rec)} samples = "
+        f"{len(rec) / FS:.1f} s ({rec.nbytes / 1e6:.1f} MB float32); "
+        f"LongHarvest windows of {lh.Tc} samples every {lh.stride}, "
+        f"{lh.n_chunks(len(rec))} chunks; synthesis chunks of "
+        f"{LONG_CHUNK_FRAMES} frames")
+
+    def peak_reset():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def gib(b):
+        return b / 2 ** 30
+
+    # ---- (a) parity at PARITY_S s ----
+    # the whole utterances of the first PARITY_S s: a cut inside an
+    # utterance would hand the chunked path's zero padding and the
+    # unchunked path's own edge handling different last frames (the
+    # boundary difference tests/test_longform.py keeps out with a silent
+    # tail); and a length that is a multiple of the decimation ratio, as
+    # the chunk windows are: the reference's decimation picks its samples
+    # counting from the signal's end
+    end = int(ends[ends <= PARITY_S * FS][-1])
+    x60 = rec[:end - end % lh.geo.ratio]
+
+    def f0_diff(a, b):
+        both = (a > 0) & (b > 0)
+        d = np.abs(a - b)[both]
+        return dict(flips=int(((a > 0) != (b > 0)).sum()),
+                    agree=float(((a > 0) == (b > 0)).mean()),
+                    voiced=float(both.mean()),
+                    rmse=float(np.sqrt(np.mean(d ** 2))),
+                    median=float(np.median(d)), max=float(d.max()))
+
+    def fmt(r):
+        return (f"voiced {r['voiced']:.3f}, voicing flips {r['flips']} "
+                f"(agreement {r['agree']:.5f}), F0 RMSE {r['rmse']:.2e} "
+                f"Hz, median {r['median']:.2e} Hz, max {r['max']:.2e} Hz")
+
+    def unchunked(x):
+        """The unchunked stages with LongHarvest's own host contour (what
+        worldtpu's HarvestKernel.compute runs past 8,192 frames and what
+        tests/test_longform.py holds LongHarvest to)."""
+        geo = H.HarvestGeometry(FS, len(x), f0_floor=LONG_FLOOR)
+        with torch.no_grad():
+            cu, su = (t[0].cpu().numpy().astype(np.float64)
+                      for t in H.harvest_device_stages(
+                          torch.tensor(x, device=dev)[None],
+                          torch.zeros(1, device=dev), geo=geo))
+        return H.host_contour(cu, su, geo)
+
+    # tests/test_longform.py's own signal, 60 s, at this rate and floor
+    xs = long_utterance(FS, TEST_SIGNAL_S)
+    rs = f0_diff(lh.compute(xs)[0], unchunked(xs))
+    log(f"(a) LongHarvest on tests/test_longform.py's {TEST_SIGNAL_S:g} s "
+        f"signal vs the "
+        f"unchunked Harvest (same host contour): {fmt(rs)}; gates: flips "
+        f"0, RMSE < {LONG_F0_RMSE} Hz, max < {LONG_F0_MAX} Hz  [{card}]")
+    if rs["flips"] or rs["rmse"] >= LONG_F0_RMSE or rs["max"] >= LONG_F0_MAX:
+        raise AssertionError("LongHarvest disagrees with the unchunked "
+                             "Harvest on tests/test_longform.py's signal")
+    del xs
+
+    lh.compute(x60)                              # warm-up
+    peak_reset()
+    t0 = time.perf_counter()
+    f0c, tpc = lh.compute(x60)
+    lh_s = time.perf_counter() - t0
+    peak_lh = torch.cuda.max_memory_allocated()
+    hk = H.HarvestKernel(FS, len(x60), f0_floor=LONG_FLOOR, device=dev)
+    hk.compute(x60)
+    peak_reset()
+    t0 = time.perf_counter()
+    f0d, tpu = hk.compute(x60)
+    hk_s = time.perf_counter() - t0
+    peak_hk = torch.cuda.max_memory_allocated()
+    del hk
+    f0u = unchunked(x60)
+    rr = f0_diff(f0c, f0u)
+    rd = f0_diff(f0c, f0d)
+    rc = f0_diff(f0u, f0d)
+    log(f"(a) LongHarvest on the first {len(x60) / FS:.2f} s "
+        f"({np.sum(ends <= PARITY_S * FS)} whole utterances), {len(f0c)} "
+        f"frames, against the unchunked Harvest (same host contour): "
+        f"{fmt(rr)}; gates: agreement >= {REC_VOICING}, median < "
+        f"{REC_F0_MEDIAN} Hz; against HarvestKernel.compute on the card "
+        f"(float32 device contour chain): {fmt(rd)}; the two contours on "
+        f"the same unchunked candidates: {fmt(rc)}; walls {lh_s:.2f} s "
+        f"chunked, {hk_s:.2f} s HarvestKernel.compute; peak device memory "
+        f"{gib(peak_lh):.2f} GiB chunked, {gib(peak_hk):.2f} GiB "
+        f"HarvestKernel.compute  [{card}]")
+    if (f0c.shape != f0u.shape or not np.array_equal(tpc, tpu)
+            or rr["agree"] < REC_VOICING or rr["median"] >= REC_F0_MEDIAN
+            or rr["voiced"] < 0.3):
+        raise AssertionError("LongHarvest disagrees with the unchunked "
+                             "Harvest")
+
+    lp.copy_synthesis(x60, **syn)                # warm-up
+    t0 = time.perf_counter()
+    yc, f0s = lp.copy_synthesis(x60, **syn)
+    lp_s = time.perf_counter() - t0
+    p = lp.plan(x60, f0s, DUR)
+    fft = lp.fft_size
+    with torch.no_grad():
+        xt = torch.tensor(x60, device=dev)[None]
+        f0t = torch.tensor(f0s.astype(np.float32), device=dev)[None]
+        F = f0t.shape[1]
+        # the main path's frame times (parallel.batch)
+        tpos = torch.arange(F, dtype=torch.float32, device=dev) * 0.005
+        spec = cheaptrick_frames(xt, f0t, tpos, fs=FS, fft_size=fft,
+                                 max_half_window=lp.max_half_window)
+        ap = d4c_frames(xt, f0t, tpos, fs=FS, fft_size_out=fft)
+        mp = S.estimate_max_pulses(f0s.astype(np.float32), FS, fft,
+                                   p.out_length)
+        noise = N.indexed_noise(LONG_SEED, 0, mp, fft, device=dev)[None]
+        yu, ovf = S.synthesis_frames_impl(
+            f0t, spec, ap, noise, fs=FS, fft_size=fft, frame_period_s=p.fp_s,
+            out_length=p.out_length, max_pulses=mp, return_overflow=True)
+        yu = yu[0].cpu().numpy()
+        idx, _, n_p, _, _, _ = S._time_base(f0t, FS, p.fp_s, p.out_length,
+                                            FS / fft + 1.0, mp)
+        carries, _, _ = LA._phase_prescan(p, dev)
+        pos = []
+        for k in range(p.n_chunks):
+            pul = LA._pulse_table(p, k, k + 1, carries[k:k + 1])
+            pos.append((k * p.L + pul["idx"][0])[pul["own"][0]])
+        pos = torch.cat(pos)
+        n_p = int(n_p[0])
+        same_pulses = len(pos) == n_p and torch.equal(pos, idx[0, :n_p])
+        # the frame-blocked analysis against the unchunked one, frame by
+        # frame
+        n_diff = n_cmp = 0
+        s_err = a_err = 0.0
+        for k0 in range(0, p.n_chunks, LA.PARALLEL_GROUP):
+            k1 = min(k0 + LA.PARALLEL_GROUP, p.n_chunks)
+            sb, ab = LA._analysis(p, k0, k1)
+            for g, k in enumerate(range(k0, k1)):
+                fr = torch.arange(p.flo[k], min(p.flo[k] + p.Fb, F),
+                                  device=dev)
+                ds = ((sb[g, fr - p.flo[k]] - spec[0, fr]).abs()
+                      / spec[0, fr]).amax(1)
+                da = (ab[g, fr - p.flo[k]] - ap[0, fr]).abs().amax(1)
+                n_diff += int(((ds > 0) | (da > 0)).sum())
+                n_cmp += len(fr)
+                s_err = max(s_err, float(ds.max()))
+                a_err = max(a_err, float(da.max()))
+            del sb, ab
+    rel = windowed_rel(yc, yu)
+    q99, q90 = float(np.quantile(rel, 0.99)), float(np.quantile(rel, 0.9))
+    log(f"(a) LongPipeline {len(x60) / FS:.2f} s ({p.n_chunks} chunks of {p.L} "
+        f"samples, Pmax {p.Pmax}) vs unchunked CheapTrick + D4C + synthesis "
+        f"on its F0 with the same noise rows: {n_p} pulses, positions "
+        f"identical {same_pulses}; windowed relative error median "
+        f"{float(np.median(rel)):.2e}, q90 {q90:.2e} (gate {WINDOW_Q90}), "
+        f"q99 {q99:.2e} (gate {PARITY_Q99}), max {float(rel.max()):.2e}; "
+        f"block analysis frames not bit-equal to the unchunked analysis "
+        f"{n_diff} of {n_cmp} (spectrogram max rel {s_err:.2e}, "
+        f"aperiodicity max abs {a_err:.2e}); wall {lp_s:.2f} s  [{card}]")
+    if (not same_pulses or bool(ovf.any()) or len(yc) != p.out_length
+            or q99 >= PARITY_Q99 or q90 >= WINDOW_Q90):
+        raise AssertionError("LongPipeline disagrees with the unchunked "
+                             "path")
+    del xt, spec, ap, noise, idx
+
+    # the OLA launches of one parallel group, for (c)
+    seen = []
+    real_ola = LA.overlap_add
+
+    def spy(resp, starts, out_length, n_pulses):
+        if not seen:
+            seen.append((resp, starts, out_length, n_pulses))
+        return real_ola(resp, starts, out_length, n_pulses)
+
+    LA.overlap_add = spy
+    try:
+        lp.copy_synthesis(x60, parallel=True, **syn)
+    finally:
+        LA.overlap_add = real_ola
+
+    # ---- (b) the whole recording ----
+    def run(x, parallel):
+        peak_reset()
+        t0 = time.perf_counter()
+        y, f0 = lp.copy_synthesis(x, parallel=parallel, **syn)
+        return y, f0, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated()
+
+    x150 = rec[:BOUND_S * FS]
+    peak150 = {}
+    for par in (False, True):
+        _, _, w, peak150[par] = run(x150, par)
+        log(f"(b) {BOUND_S} s, {'parallel' if par else 'sequential'}: wall "
+            f"{w:.2f} s, peak device memory {gib(peak150[par]):.3f} GiB")
+    walls = {False: [], True: []}
+    peaks, outs, counts = {}, {}, {}
+    for i, par in enumerate((False, True, True, False)):
+        _build.launches.clear()
+        y, f0, w, pk = run(rec, par)
+        counts.setdefault(par, dict(_build.launches))
+        walls[par].append(w)
+        peaks[par] = max(peaks.get(par, 0), pk)
+        outs.setdefault(par, (y, f0))
+    (ys, f0s6), (yp, f0p6) = outs[False], outs[True]
+    rms = float(np.sqrt(np.mean(ys.astype(np.float64) ** 2)))
+    rel = windowed_rel(yp, ys)
+    q99b, q90b = float(np.quantile(rel, 0.99)), float(np.quantile(rel, 0.9))
+    p6 = lp.plan(rec, f0s6, DUR)
+    n_h = lh.n_chunks(len(rec))
+    n_hb = -(-n_h // 16)
+    for par, name in ((False, "sequential"), (True, "parallel")):
+        med = statistics.median(walls[par])
+        log(f"(b) {LONG_S} s, {name}: walls {[round(v, 2) for v in walls[par]]}"
+            f" s, median {med:.2f} s = {LONG_S / med:.1f}x realtime; peak "
+            f"device memory {gib(peaks[par]):.3f} GiB; launches "
+            f"{counts[par]}  [{card}]")
+    log(f"(b) {LONG_S} s: output {len(ys)} samples ({len(ys) / FS:.1f} s), "
+        f"rms {rms:.4f}, voiced {float((f0s6 > 0).mean()):.3f}; "
+        f"{n_h} Harvest chunks in {n_hb} batches, {p6.n_chunks} synthesis "
+        f"chunks of {p6.L} samples (Pmax {p6.Pmax}); F0 of the two modes "
+        f"identical {np.array_equal(f0s6, f0p6)}; parallel vs sequential "
+        f"windowed relative error q90 {q90b:.2e}, q99 {q99b:.2e}, max "
+        f"{float(rel.max()):.2e}")
+    if (not np.isfinite(ys).all() or not np.isfinite(yp).all() or rms < 0.01
+            or not np.array_equal(f0s6, f0p6) or len(ys) != p6.out_length
+            or q99b >= PARITY_Q99 or q90b >= WINDOW_Q90):
+        raise AssertionError(f"{LONG_S} s long audio")
+    want = {False: {"wt_zc": n_hb, "wt_refine_sums": n_hb,
+                    "wt_ola": p6.n_chunks},
+            True: {"wt_zc": n_hb, "wt_refine_sums": n_hb,
+                   "wt_ola": -(-p6.n_chunks // LA.PARALLEL_GROUP)}}
+    for par in (False, True):
+        for k, v in want[par].items():
+            if counts[par].get(k, 0) != v:
+                raise AssertionError(f"{k}: {counts[par].get(k, 0)} launches "
+                                     f"in the {LONG_S} s run, not {v}")
+
+    # bounded memory: the bytes that grow with the recording are the input
+    # (LongHarvest's padded copy and the pipeline's) and the F0 tables
+    def grow(x):
+        pl = lp.plan(x, f0s6[:1 + int(1000 * len(x) / FS / 5.0)], DUR)
+        return nbytes(pl.x_dev, pl.f0_dev, pl.cf0_dev, pl.cvuv_dev,
+                      pl.o0_dev, pl.flo_dev, pl.tpos_dev,
+                      lh._windows(x, torch.float32)[0])
+    extra = grow(rec) - grow(x150)
+    for par, name in ((False, "sequential"), (True, "parallel")):
+        limit = (peak150[par] + extra) * (1 + MEM_MARGIN)
+        log(f"(b) bounded memory, {name}: peak {gib(peaks[par]):.3f} GiB at "
+            f"{LONG_S} s against {gib(peak150[par]):.3f} GiB at {BOUND_S} s "
+            f"+ {extra / 1e6:.1f} MB of input and F0 tables, + "
+            f"{100 * MEM_MARGIN:.0f}%: limit {gib(limit):.3f} GiB")
+        if peaks[par] > limit:
+            raise AssertionError(f"device memory grows with the recording "
+                                 f"({name})")
+
+    # LongHarvest's wall split: device stages alone, with the downloads
+    # (and stitching), and the host contour
+    xp, starts = lh._windows(rec, torch.float32)
+    mean = torch.zeros(16, device=dev)
+    split = {"stages": [], "stages + downloads": [], "host contour": []}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for b0 in range(0, len(starts), 16):
+                rows = starts[b0:b0 + 16]
+                H.harvest_device_stages(torch.stack(
+                    [xp[s:s + lh.Tc] for s in rows]), mean[:len(rows)],
+                    geo=lh.geo)
+        torch.cuda.synchronize()
+        split["stages"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        c, s_ = lh._candidates(rec, torch.float32, 16)
+        split["stages + downloads"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        lh._contour(c, s_, len(rec))
+        split["host contour"].append(time.perf_counter() - t0)
+    del xp, c, s_
+    log(f"(b) LongHarvest {LONG_S} s split (walls, s): "
+        + "; ".join(f"{k} {[round(v, 3) for v in vs]}"
+                    for k, vs in split.items())
+        + f"  [{card}]")
+
+    # host syncs of the synthesis loops (CUDA sync debug mode)
+    key = N.as_key(LONG_SEED)
+    with torch.no_grad():
+        _, n_seq = count_syncs(torch, lambda: lp._sequential(p6, key))
+        _, n_par = count_syncs(torch, lambda: lp._parallel(p6, key))
+    log(f"(b) host syncs of the synthesis loop over {p6.n_chunks} chunks: "
+        f"sequential {n_seq} ({n_seq / p6.n_chunks:.3f} per chunk), "
+        f"parallel {n_par} ({n_par / p6.n_chunks:.3f} per chunk)")
+    del p6
+
+    # ---- (c) kernels against their plain versions at this path's shapes
+    resp, starts_, out_l, n_own = seen[0]
+    ok_, o_seen = capture(_build, lambda: ola_kernel.overlap_add_cuda(
+        resp, starts_, out_l, n_own))
+    op = ola_kernel.overlap_add_plain(resp, starts_, out_l, n_own)
+    oerr = float((ok_ - op).abs().max())
+    obad = int(((ok_ - op).abs() > OLA_ATOL + OLA_RTOL * op.abs()).sum())
+    o_ms = device_ms(torch, cycles_per_ms, replayer(torch, _build,
+                                                    _build.library(), o_seen),
+                     50)
+    real = int(n_own.sum())
+    o_bound = bound(real * resp.shape[2] * 4 + nbytes(starts_, ok_),
+                    real * resp.shape[2])
+    log(f"(c) ola on one parallel group: resp {tuple(resp.shape)} -> "
+        f"{tuple(ok_.shape)}, {real} owned pulses; max abs err {oerr:.3e}, "
+        f"out of tolerance {obad} (tol {OLA_ATOL} + {OLA_RTOL}*|y|); device "
+        f"time alone {o_ms:.4f} ms, bound {o_bound[0]:.4f} ms "
+        f"({o_bound[1]})  [{card}]")
+    if obad:
+        raise AssertionError("OLA kernel disagrees with its plain version "
+                             "at the long-audio shapes")
+    del seen, resp, ok_, op, o_seen
+
+    xp, starts = lh._windows(rec, torch.float32)
+    geo = lh.geo
+    with torch.no_grad():
+        xb = torch.stack([xp[s:s + lh.Tc] for s in starts[3:5]])
+        y_dec = H.decimate_stage(xb, ratio=geo.ratio, y_length=geo.y_length)
+        filt = H.band_filter(y_dec, geo)
+        bounds_ = torch.as_tensor(geo.boundary_f0, dtype=torch.float32,
+                                  device=dev)
+        zargs = zc_kernel.geometry_args(geo)
+        zk, z_seen = capture(_build, lambda: zc_kernel.band_candidates_cuda(
+            filt, bounds_, **zargs))
+        zp = zc_kernel.band_candidates_plain(filt, bounds_, **zargs)
+        z_ms = device_ms(torch, cycles_per_ms, replayer(
+            torch, _build, _build.library(), z_seen), 10)
+        cand, _, _ = H.candidates_stage(y_dec, torch.zeros(2, device=dev),
+                                        geo)
+        tp1 = torch.arange(geo.f0_length, dtype=torch.float32,
+                           device=dev) / 1000.0
+        prep = refine_kernel.prepare(y_dec, cand, tp1, geo=geo,
+                                     dedup_tol=H.REFINE_DEDUP_TOL)
+        rk_args = prep["kernel_args"]
+        rkw = dict(hwmax=geo.max_half_window, n_fft=geo.refine_fft)
+        rk, r_seen = capture(_build, lambda: refine_kernel.spectral_sums_cuda(
+            *rk_args, **rkw))
+        rp = refine_kernel.spectral_sums_plain(*rk_args, **rkw)
+        rerr = float((rk - rp).abs().max())
+        rscale = float(rp.abs().max())
+        fk, _ = refine_kernel.finish(rk, prep, geo=geo)
+        fp, _ = refine_kernel.finish(rp, prep, geo=geo)
+        fboth = (fk > 0) & (fp > 0)
+        frel = float(((fk - fp).abs() / fp.clamp(min=1e-3))[fboth].max())
+        fflips = int(((fk > 0) != (fp > 0)).sum())
+        r_ms = device_ms(torch, cycles_per_ms, replayer(
+            torch, _build, _build.library(), r_seen), 10)
+    log(f"(c) zc on 2 LongHarvest windows: filt {tuple(filt.shape)} -> "
+        f"{tuple(zk.shape)}, equal to the plain version {torch.equal(zk, zp)}"
+        f" (tol 0), device time alone {z_ms:.4f} ms; refine: "
+        f"{int(rk_args[4].sum())} active pairs, max abs err {rerr:.3e} of "
+        f"max |sum| {rscale:.3e} (tol {REFINE_REL} rel), refined F0 max rel "
+        f"{frel:.2e} (tol {REFINE_F0_REL}), flips {fflips} (tol 0), device "
+        f"time alone {r_ms:.4f} ms  [{card}]")
+    if (not torch.equal(zk, zp) or rerr > REFINE_REL * rscale
+            or frel > REFINE_F0_REL or fflips):
+        raise AssertionError("zc or refine disagrees with its plain version "
+                             "at the long-audio shapes")
+    log(f"phase 9 wall: {time.perf_counter() - t_phase:.1f} s")
+    return counts[False]
 
 
 if __name__ == "__main__":

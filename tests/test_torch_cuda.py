@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from worldtpu_torch import _build, api
+from worldtpu_torch import longaudio as TLA
+from worldtpu_torch.analysis import cheaptrick as TCT
 from worldtpu_torch.analysis import contour_device as TCD
 from worldtpu_torch.analysis import harvest as TH
 from worldtpu_torch.analysis.cheaptrick import CheapTrickKernel
@@ -667,3 +669,119 @@ def test_codec_on_card_matches_cpu(dev):
             err = {"abs": d.max(), "rel": (d / want.abs()).max(),
                    "of max": d.max() / want.abs().max()}[kind]
             assert float(err) <= tol, (fn.__name__, dt, float(err))
+
+
+# ---------------------------------------------------------------------------
+# long audio on the card
+# ---------------------------------------------------------------------------
+
+def _long_utterance(fs, dur, seed=0):
+    """tests/test_longform.py's long test utterance (that module imports
+    JAX, which the card's machine lacks)."""
+    n = int(fs * dur)
+    t = np.arange(n) / fs
+    f0 = 170 * 2 ** ((40 / 1200) * np.sin(2 * np.pi * 0.35 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / fs
+    rng = np.random.RandomState(seed)
+    x = np.zeros(n)
+    for k in range(1, 12):
+        x += np.sin(k * phase) / k
+    x /= np.abs(x).max() * 1.4
+    g0, g1 = int(0.42 * n), int(0.47 * n)
+    x[g0:g1] = 0.003 * rng.randn(g1 - g0)
+    x += 0.002 * rng.randn(n)
+    x[-int(0.4 * fs):] = 0.0
+    return x.astype(np.float32)
+
+
+def _windowed_rel(yc, yu, fs):
+    yc, yu = yc.astype(np.float64), yu.astype(np.float64)
+    w = int(0.1 * fs)
+    n = (len(yu) // w) * w
+    dw = np.sqrt(((yc[:n] - yu[:n]).reshape(-1, w) ** 2).mean(axis=1))
+    uw = np.sqrt((yu[:n].reshape(-1, w) ** 2).mean(axis=1))
+    return dw / np.maximum(uw, np.median(uw) * 1e-3)
+
+
+def _short_time_rms(y, w):
+    n = (len(y) // w) * w
+    return np.sqrt((y[:n].astype(np.float64).reshape(-1, w) ** 2).mean(1))
+
+
+def test_long_pipeline_on_card_matches_cpu(dev):
+    """LongPipeline on the card (zc, refine and OLA kernels) against the
+    same pipeline on the CPU (plain versions) on an 8 s utterance.  F0:
+    tests/test_longform.py's gates (voicing identical, RMSE < 0.1 Hz, max
+    < 5 Hz).  The synthesis on one F0 (the card's): the card divides a
+    tensor by a Python scalar as a product with its reciprocal, one
+    rounding apart from the CPU's division, so a knife-edge voicing sample
+    of the time base can flip and move every later pulse and noise row
+    (as on the main path, phase 5 of chip_smoke.py): the 100 ms energy
+    envelopes agree (p95 relative < 0.02) and so does the total energy
+    (1%).  On the card the parallel mode gives the sequential mode's F0 and
+    waveform (windowed relative error q99 < 1e-3)."""
+    fs = 16000
+    x = _long_utterance(fs, 8.0, seed=2)
+    kw = dict(f0_floor=40.0, chunk_frames=400, harvest_chunk_ms=3000)
+    syn = dict(seed=7, pitch_scale=1.2, duration_scale=1.25)
+    lpg = TLA.LongPipeline(fs, device=dev, **kw)
+    lpc = TLA.LongPipeline(fs, device="cpu", **kw)
+    _build.launches.clear()
+    yg, f0g = lpg.copy_synthesis(x, **syn)
+    counts = dict(_build.launches)
+    assert counts["wt_zc"] == counts["wt_refine_sums"] == 1
+    assert counts["wt_ola"] == -(-len(yg) // int(round(400 * 0.00625 * fs)))
+    fg, tp = lpg.harvest.compute(x)
+    fc, _ = lpc.harvest.compute(x)
+    np.testing.assert_array_equal(fg * 1.2, f0g)
+    assert np.array_equal(fg > 0, fc > 0) and (fg > 0).mean() > 0.6
+    d = np.abs(fg - fc)[fg > 0]
+    assert np.sqrt(np.mean(d ** 2)) < 0.1 and d.max() < 5.0
+    lpc.harvest.compute = lambda x, dtype=None: (fg, tp)
+    yc, _ = lpc.copy_synthesis(x, **syn)
+    assert yg.shape == yc.shape and np.isfinite(yg).all()
+    eg, ec = _short_time_rms(yg, 1600), _short_time_rms(yc, 1600)
+    env = np.abs(eg - ec) / np.maximum(ec, np.median(ec) * 1e-3)
+    assert np.quantile(env, 0.95) < 0.02
+    assert abs(np.sqrt(np.mean(eg ** 2)) / np.sqrt(np.mean(ec ** 2)) - 1) \
+        < 0.01
+    yp, f0p = lpg.copy_synthesis(x, parallel=True, **syn)
+    np.testing.assert_array_equal(f0p, f0g)
+    assert np.quantile(_windowed_rel(yp, yg, fs), 0.99) < 1e-3
+
+
+def test_per_row_positions_on_card(dev):
+    """cheaptrick_frames and d4c_frames with [B, F] frame times on the
+    card: each row as that row alone on the card, and the card as the CPU:
+    the spectrogram within 1e-3 relative and 1e-6 of its largest value
+    (the FFTs of a batch of rows round apart from one row's, relative to a
+    frame's energy: 1.2e-4 relative at 1e-9 absolute on the highest bin),
+    the aperiodicity within 1e-4 absolute."""
+    from worldtpu_torch.analysis.d4c import d4c_frames
+    fs = 22050
+    x = torch.tensor(_vowels(fs, 2))
+    ck = CheapTrickKernel(fs)
+    F = 1 + int(1000 * x.shape[1] / fs / 5.0)
+    f0 = torch.full((2, F), 180.0)
+    f0[:, F // 3:F // 2] = 0.0
+    tp = torch.arange(F, dtype=torch.float32) * 0.005
+    rows = torch.stack([tp, tp - 41.75 / fs])
+    kw = dict(fs=fs, fft_size=ck.fft_size, max_half_window=ck.max_half_window)
+
+    def run(d):
+        return (TCT.cheaptrick_frames(x.to(d), f0.to(d), rows.to(d), **kw),
+                d4c_frames(x.to(d), f0.to(d), rows.to(d), fs=fs,
+                           fft_size_out=ck.fft_size))
+    sg, ag = run(dev)
+    sc, ac = run("cpu")
+    for i in range(2):
+        s_i = TCT.cheaptrick_frames(x[i:i + 1].to(dev), f0[i:i + 1].to(dev),
+                                    rows[i].to(dev), **kw)
+        a_i = d4c_frames(x[i:i + 1].to(dev), f0[i:i + 1].to(dev),
+                         rows[i].to(dev), fs=fs, fft_size_out=ck.fft_size)
+        torch.testing.assert_close(sg[i], s_i[0], rtol=1e-3,
+                                   atol=1e-6 * float(s_i.abs().max()))
+        torch.testing.assert_close(ag[i], a_i[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(sg.cpu(), sc, rtol=1e-3,
+                               atol=1e-6 * float(sc.abs().max()))
+    torch.testing.assert_close(ag.cpu(), ac, rtol=0, atol=1e-4)

@@ -24,21 +24,29 @@ from worldtpu_torch.ops.numeric import matlab_round, rdiv
 
 def frame_segments(x, origin, half):
     """Rows x[b, clip(origin_f, 0, T-1) + (-half..half)] with edge
-    replication: x [B, T], origin [F] -> [B, F, 2*half+1]."""
+    replication: x [B, T], origin [F] (shared by the rows) or [B, F] (one
+    per row) -> [B, F, 2*half+1]."""
     T = x.shape[-1]
     xpad = Fn.pad(x[:, None, :], (half, half), mode="replicate")[:, 0]
-    return xpad.unfold(-1, 2 * half + 1, 1)[:, origin.clamp(0, T - 1).long()]
+    win = xpad.unfold(-1, 2 * half + 1, 1)
+    origin = origin.clamp(0, T - 1).long()
+    if origin.dim() == 1:
+        return win[:, origin]
+    return win[torch.arange(x.shape[0], device=x.device)[:, None], origin]
 
 
 def cheaptrick_frames(x, f0, temporal_positions, *, fs, fft_size,
                       max_half_window, q1=-0.15, f0_floor=None,
-                      window_dither=None, spectrum_dither=None):
+                      window_dither=None, spectrum_dither=None,
+                      sample_offset=None):
     """Spectral envelope for all frames.
 
     Args:
         x: [B, T] waveforms.
         f0: [B, F] contours (0 = unvoiced).
-        temporal_positions: [F] frame times (s).
+        temporal_positions: [F] frame times (s), or [B, F], one row of
+            frame times per waveform (chunks of one long recording, each
+            with its own origin).
         max_half_window: bound round(1.5*fs/effective_floor).
         f0_floor: effective floor (f0 <= floor uses kDefaultF0); defaults to
             getF0FloorForCheapTrick(fs, fft_size).
@@ -47,6 +55,11 @@ def cheaptrick_frames(x, f0, temporal_positions, *, fs, fft_size,
             ``analysis.dither.cheaptrick_dither``).
         spectrum_dither: optional [B, F, K] parity noise floor
             (|randn()| * kEps); without it a constant kEps floor is added.
+        sample_offset: optional [B] int tensor: row b of x starts at sample
+            sample_offset[b] of a longer recording whose frame times
+            temporal_positions are.  A window origin is rounded on those
+            times, then taken relative to the row (the chunks of one long
+            recording round their origins as the whole recording does).
 
     Returns:
         [B, F, K] power envelope, K = fft_size//2 + 1.
@@ -68,9 +81,15 @@ def cheaptrick_frames(x, f0, temporal_positions, *, fs, fft_size,
     offs = torch.arange(W, device=dev) - max_half_window
     in_win = torch.abs(offs) <= half[..., None]               # [B, F, W]
     origin = matlab_round(temporal_positions.to(dt) * fs + 0.001)
+    if sample_offset is not None:
+        origin = origin - sample_offset.to(origin.dtype)[:, None]
     f64 = dt == torch.float64
     if f64:      # parity path: the literal clipped gather and window
-        seg = x[:, (origin[:, None] + offs).clamp(0, x.shape[-1] - 1).long()]
+        idx = (origin[..., None] + offs).clamp(0, x.shape[-1] - 1).long()
+        if idx.dim() == 2:
+            seg = x[:, idx]
+        else:
+            seg = torch.gather(x, 1, idx.reshape(B, -1)).reshape(B, F, W)
         position = offs.to(dt) / 1.5 / fs
         win = 0.5 * torch.cos(C.PI * position * cf0[..., None]) + 0.5
     else:

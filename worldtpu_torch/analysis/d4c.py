@@ -220,13 +220,15 @@ def _coarse_to_bins(ca, active, fs, fft_size_out, n_ap, Ko):
 
 def d4c_frames(x, f0, temporal_positions, *, fs, fft_size_out,
                threshold=0.85, f0_ceil_bound=C.CEIL_F0, lt_dither=None,
-               c1_dither=None, c2_dither=None, h_dither=None):
+               c1_dither=None, c2_dither=None, h_dither=None,
+               sample_offset=None):
     """Band aperiodicity for all frames.
 
     Args:
         x: [B, T] waveforms.
         f0: [B, F] contours (0 = unvoiced).
-        temporal_positions: [F] frame times (s).
+        temporal_positions: [F] frame times (s), or [B, F], one row per
+            waveform.
         fft_size_out: output bin geometry (the CheapTrick fft size).
         f0_ceil_bound: bound on the largest f0, sizing smoothing pads.
         lt_dither: optional [B, F, 2*d4c_max_half_lt(fs)+1] LoveTrain window
@@ -234,6 +236,11 @@ def d4c_frames(x, f0, temporal_positions, *, fs, fft_size_out,
         c1_dither, c2_dither, h_dither: optional [B, F,
             2*d4c_max_half_c(fs)+1] main-loop window parity dithers
             (centroid -0.25/f0, centroid +0.25/f0, Hanning), float64 only.
+        sample_offset: optional [B] int tensor: row b of x starts at sample
+            sample_offset[b] of a longer recording whose frame times
+            temporal_positions are; window origins are rounded on those
+            times, then taken relative to the row.  float32 only (the
+            long-audio path).
 
     Returns:
         [B, F, fft_size_out//2 + 1] aperiodicity in (0, 1].
@@ -241,6 +248,8 @@ def d4c_frames(x, f0, temporal_positions, *, fs, fft_size_out,
     dt = x.dtype
     dithers = (lt_dither, c1_dither, c2_dither, h_dither)
     if dt == torch.float64:
+        if sample_offset is not None:
+            raise ValueError("sample_offset belongs to the float32 path")
         return _d4c_frames_f64(
             x, f0.to(dt), temporal_positions.to(dt), fs=fs,
             fft_size_out=fft_size_out, threshold=threshold,
@@ -263,9 +272,13 @@ def d4c_frames(x, f0, temporal_positions, *, fs, fft_size_out,
     max_half_c = d4c_max_half_c(fs)
     seg_half = max(max_half_lt, max_half_c)
     seg_pad = int(0.25 * fs / C.FLOOR_F0_D4C) + 2
-    seg_origin = matlab_round(pos * fs + 0.001)                 # [F]
+    seg_origin = matlab_round(pos * fs + 0.001)          # [F] or [B, F]
     P_seg = seg_half + seg_pad
-    frame_seg = frame_segments(x, seg_origin, P_seg)
+    # the shifted centroids' offsets d_f are differences of origins on the
+    # frame times; only the reads are relative to the row
+    frame_seg = frame_segments(
+        x, seg_origin if sample_offset is None
+        else seg_origin - sample_offset.to(seg_origin.dtype)[:, None], P_seg)
 
     def seg_for(max_half):
         d = seg_half - max_half

@@ -1,10 +1,10 @@
 """Carry the vocoder's static state from the JAX package into the port.
 
 The vocoder has no learned weights; its parameters are the static Harvest
-geometry (from which the filter-bank tables are derived) and the
-synthesis noise array.  These helpers let tests and tools feed both
-packages identical inputs without importing JAX here: callers pass plain
-python/numpy values.
+geometry (from which the filter-bank tables are derived), the synthesis
+noise array, and the long-audio path's noise key.  These helpers let tests
+and tools feed both packages identical inputs without importing JAX here:
+callers pass plain python/numpy values.
 """
 
 from __future__ import annotations
@@ -47,3 +47,16 @@ def noise_from_numpy(arr, device) -> torch.Tensor:
     """A synthesis noise array [B, max_pulses, fft_size] (or
     [max_pulses, fft_size]) as a float32 tensor on ``device``."""
     return torch.as_tensor(np.asarray(arr, np.float32), device=device)
+
+
+def key_from_worldtpu(words) -> tuple:
+    """The port's noise key (``synthesis.noise``, two uint32 words as a
+    tuple of ints) from the two uint32 words of a JAX ``PRNGKey`` passed as
+    numpy (``np.asarray(jax.random.PRNGKey(seed))``): the key under which
+    ``longaudio.LongPipeline`` draws the rows ``worldtpu``'s draws."""
+    from worldtpu_torch.synthesis.noise import as_key
+    arr = np.asarray(words)
+    if arr.shape != (2,) or arr.dtype != np.uint32:
+        raise ValueError(f"expected the two uint32 words of a PRNGKey, got "
+                         f"{arr.dtype} {arr.shape}")
+    return as_key(arr)

@@ -113,22 +113,30 @@ def _time_base(f0, fs, frame_period_s, out_length, lowest_f0, max_pulses):
 
 
 def pulse_responses(pt, shift, ns, vuv_at, valid, spectrogram,
-                    aperiodicity, noise, *, fs, fft_size):
+                    aperiodicity, noise, *, fs, fft_size, frame_offset=0):
     """Per-pulse impulse responses [B, P, fft_size] (reference :308-344).
 
     pt: [B, P] fractional frame position of each pulse; shift: [B, P]
     sub-sample time shift (s); ns: [B, P] noise size; vuv_at, valid: [B, P];
-    spectrogram, aperiodicity: [B, F, K]; noise: [B, P, fft_size]."""
+    spectrogram, aperiodicity: [B, F, K]; noise: [B, P, fft_size].
+    frame_offset: [B] int tensor (or 0), the global frame index of each
+    row's first spectrogram frame.  Chunked callers (``longaudio``) pass
+    the GLOBAL pt and their block offsets, so floor and ceil are taken on
+    the same float values as the unchunked path's before the offset is
+    subtracted: a locally rebased pt can floor to the neighbouring frame at
+    knife edges."""
     dt = spectrogram.dtype
     dev = spectrogram.device
     K = fft_size // 2 + 1
     half = fft_size // 2
     B, F, _ = spectrogram.shape
     P = pt.shape[1]
+    off = (frame_offset[:, None] if isinstance(frame_offset, torch.Tensor)
+           else frame_offset)
 
     # ---- per-pulse envelope / aperiodic ratio (reference :346-393) ----
-    fl = torch.floor(pt).to(torch.int32).clamp(0, F - 1).long()
-    ce = torch.ceil(pt).to(torch.int32).clamp(0, F - 1).long()
+    fl = (torch.floor(pt).to(torch.int32) - off).clamp(0, F - 1).long()
+    ce = (torch.ceil(pt).to(torch.int32) - off).clamp(0, F - 1).long()
     w = (pt - torch.floor(pt))[..., None]
     same = (fl == ce)[..., None]
 

@@ -114,7 +114,29 @@ Phases (any failure raises, so the exit code is not 0):
      150 s run's peak plus the input and F0 bytes that grow, plus 5%);
      (c) OLA on one parallel group's [8, Pmax, fft] and zc and refine on
      two LongHarvest windows [2, 220,500] against their plain versions at
-     phase 4's tolerances.
+     phase 4's tolerances;
+ 10. (a) the grid_ms fast mode on the main path: phase 3's batch through
+     batch_wav_to_wav(grid_ms=2) (a 2 ms candidate grid: zc at grid_hz
+     500, refine on half the frames, the extend walk at ext_lim 50 and
+     miss_lim 2), its wall per batch in turns with grid_ms=1, the wt.*
+     stage table, one launch of zc, refine, OLA and extend a batch, zc and
+     extend equal to their plain versions and refine within phase 4's
+     tolerance at the grid-2 shapes, F0 at grid 2 against grid 1
+     (reported), and HarvestKernel(grid_ms=2) on t16 against the C++ F0 at
+     tests/test_harvest.py's gates (vuv > 0.96, RMSE < 5 Hz, median < 0.2
+     Hz); (b) float64 long audio on phase 9's recording: one float64
+     LongHarvest window's peak memory, LongPipeline.copy_synthesis(dtype=
+     torch.float64) on phase 9's 58.52 s cut, sequential and parallel
+     (walls, LongHarvest's split, peaks; F0 against phase 9's float32
+     LongHarvest: voicing agreement >= 0.97, median |dF0| < 0.05 Hz;
+     parallel against sequential: F0 identical, windowed q99 < 1e-3 and
+     q90 < 0.1), the OLA kernel's double instantiation on a chunk and a
+     parallel group (1e-12 relative) and the sequential cumulative sum of
+     one chunk step (each launch equal to numpy.cumsum) against their plain
+     versions, and the first 150 s sequential (wall, realtime factor, the
+     float64 kernels' launches, no float32 kernel; peak within the 58.52 s
+     run's plus the bytes that grow, plus 5%).  600 s in float64 is left
+     out for the script's time.
 
 The line before the last is a JSON object {"kernels": [...]}: for each
 kernel its launches in the main path's run (``launches_main``; zc_events,
@@ -123,8 +145,11 @@ difference from its plain version, its device time alone (``ms``), its
 wrapper-inclusive time (``call_ms``), its plain version's, its bound and
 what bounds it, the share bound/ms, and the library call's device time
 (null where no single PyTorch call computes the function), and its
-launches in one pass of phase 8's corpus stream (``launches_corpus``) and
-in phase 9's first sequential 600 s run (``launches_long``).
+launches in one pass of phase 8's corpus stream (``launches_corpus``), in
+phase 9's first sequential 600 s run (``launches_long``), in one grid-2
+batch of phase 10(a) (``launches_grid2``) and in phase 10(b)'s float64
+150 s run (``launches_f64_long``); the line above it gives the whole
+script's wall.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or outside the repository, the script exits non-zero and prints no
 result.
@@ -408,6 +433,7 @@ def main(argv=None):
         print(f"chip_smoke: {baseline} holds none of {sorted(OLD_ENTRIES)}",
               file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1358,15 +1384,25 @@ def main(argv=None):
     mcd_on_card(torch, dev, card)
 
     # ---- 9. long audio on the card ----
-    long_counts = long_audio(torch, dev, card, cycles_per_ms)
+    long_counts, cut = long_audio(torch, dev, card, cycles_per_ms)
     for r in results:
         r["launches_long"] = long_counts.get(C_ENTRY[r["name"]], 0)
+
+    # ---- 10. grid_ms = 2 on the main path; float64 long audio ----
+    grid_counts = grid_phase(torch, dev, card, cycles_per_ms, x, noise, kw,
+                             audio_s)
+    f64_counts = long_audio_f64(torch, dev, card, cycles_per_ms, cut["x60"],
+                                cut["f0_x60"], cut["x150"])
+    for r in results:
+        r["launches_grid2"] = grid_counts.get(C_ENTRY[r["name"]], 0)
+        r["launches_f64_long"] = f64_counts.get(C_ENTRY[r["name"]], 0)
 
     jaxy = [m for m in sys.modules
             if m in ("jax", "worldtpu") or m.startswith(("jax.", "worldtpu."))]
     if jaxy:
         raise AssertionError(f"the smoke test imported {jaxy}")
 
+    log(f"whole script wall: {time.perf_counter() - t_script:.1f} s")
     kernels = []
     for r in results:
         b_ms, b_by = r.pop("bound")
@@ -1819,7 +1855,9 @@ def long_audio(torch, dev, card, cycles_per_ms):
     host syncs per chunk, the kernels' launches and the bounded device
     memory against the first BOUND_S s; (c) the OLA, zc and refine kernels
     against their plain versions at this path's shapes.  Returns the
-    launches of the first sequential LONG_S s run (from 0)."""
+    launches of the first sequential LONG_S s run (from 0), and for phase
+    10 the parity cut x60, its float32 LongHarvest F0 and the first
+    BOUND_S s x150."""
     from worldtpu_torch import _build
     from worldtpu_torch import longaudio as LA
     from worldtpu_torch.analysis import harvest as H
@@ -2199,7 +2237,446 @@ def long_audio(torch, dev, card, cycles_per_ms):
         raise AssertionError("zc or refine disagrees with its plain version "
                              "at the long-audio shapes")
     log(f"phase 9 wall: {time.perf_counter() - t_phase:.1f} s")
-    return counts[False]
+    return counts[False], dict(x60=x60, f0_x60=f0c, x150=x150)
+
+
+# ---- phase 10 ----
+
+GRID_FAST = 2             # the grid_ms fast mode's candidate grid (ms)
+# tests/test_harvest.py's gates of GRID_MS = 2 against the C++ F0 on t16
+# (vuv, RMSE Hz, median Hz); grid 2 against grid 1 on the main path's
+# batch is reported beside them (the fast mode gives up voicing-boundary
+# resolution, worldtpu/flags.py)
+GRID_VUV, GRID_RMSE_HZ, GRID_MEDIAN_HZ = 0.96, 5.0, 0.2
+# float64 LongHarvest against phase 9's float32 one on the same cut:
+# phase 7's float64-against-float32 voicing gate, and the median |dF0|
+F64_VOICING, F64_F0_MEDIAN_HZ = 0.97, 0.05
+
+
+def grid_phase(torch, dev, card, cycles_per_ms, x, noise, kw, audio_s):
+    """Phase 10(a): the main path (batch_wav_to_wav, phase 3's batch and
+    arguments ``kw``) with grid_ms=2 against grid_ms=1: walls in turns,
+    the wt.* stage table at grid 2, launches per batch, zc / refine /
+    extend at the grid-2 shapes against their plain versions, F0 at grid 2
+    against grid 1; and HarvestKernel(grid_ms=2) on t16 against the C++
+    F0.  ``audio_s``: the batch's audio seconds, for the realtime factor.
+    Returns the launches of one grid-2 batch (from 0)."""
+    from worldtpu_torch import _build
+    from worldtpu_torch.analysis import contour_device as CDV
+    from worldtpu_torch.analysis import harvest as H
+    from worldtpu_torch.io import params as P_, wav as W_
+    from worldtpu_torch.ops import extend_kernel, refine_kernel, zc_kernel
+    from worldtpu_torch.parallel.batch import batch_wav_to_wav
+
+    t_phase = time.perf_counter()
+    geo = kw["geo"]
+    gk = geo.with_grid(GRID_FAST)
+    B = x.shape[0]
+
+    def run(grid):
+        out = batch_wav_to_wav(x, noise, grid_ms=grid, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    run(GRID_FAST)                               # warm-up: new geometry
+    _build.launches.clear()
+    y2, f02, ovf2 = run(GRID_FAST)
+    counts = dict(_build.launches)
+    walls = {1: [], GRID_FAST: []}
+    for g in (1, GRID_FAST, GRID_FAST, 1):
+        walls[g].append(round(wall_ms(torch, lambda: run(g), 5), 3))
+    _, f01, _ = run(1)
+    y_np = y2.cpu().numpy()
+    rms = float(np.sqrt(np.mean(y_np ** 2)))
+    med = {g: statistics.median(v) for g, v in walls.items()}
+    log(f"(a) grid_ms={GRID_FAST}: {gk.f0_length} candidate frames of "
+        f"{GRID_FAST} ms (grid 1: {geo.f0_length}); launches per batch "
+        f"{counts}; wall per batch, medians of 5 in turns (1, 2, 2, 1): "
+        f"grid 1 {walls[1]} ms, grid 2 {walls[GRID_FAST]} ms; medians "
+        f"{med[1]:.1f} / {med[GRID_FAST]:.1f} ms ({audio_s / med[1] * 1e3:.1f}"
+        f"x / {audio_s / med[GRID_FAST] * 1e3:.1f}x realtime); output rms "
+        f"{rms:.4f}  [{card}]")
+    if (tuple(y_np.shape) != (B, kw["out_length"])
+            or not np.isfinite(y_np).all() or rms < 0.01
+            or bool(ovf2.any())):
+        raise AssertionError("grid_ms=2 main path output")
+    for k in MAIN_KERNELS:
+        if counts.get(k, 0) != 1:
+            raise AssertionError(f"grid_ms=2: {k} launched "
+                                 f"{counts.get(k, 0)} times a batch, not "
+                                 f"once")
+    a, b = f02.cpu().numpy(), f01.cpu().numpy()
+    both = (a > 0) & (b > 0)
+    agree = float(((a > 0) == (b > 0)).mean())
+    d = np.abs(a - b)[both]
+    log(f"(a) F0 at grid 2 against grid 1 on the card: voicing agreement "
+        f"{agree:.5f}, median |dF0| {float(np.median(d)):.3e} Hz, RMSE "
+        f"{float(np.sqrt(np.mean(d ** 2))):.3f} Hz, max {float(d.max()):.2f}"
+        f" Hz, voiced in both {float(both.mean()):.3f} (reported; t16's "
+        f"gates below)")
+
+    p_wall, acts, stages = stage_profile(torch, lambda: run(GRID_FAST))
+    busy = sum(a_[1] for a_ in acts)
+    log(f"(a) profiled grid-2 main path: wall {p_wall:.1f} ms (profiler "
+        f"on), device busy {busy:.1f} ms = {100 * busy / p_wall:.1f}%, "
+        f"{len(acts)} device activities  [{card}]")
+    for nm, (h_ms, d_ms) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
+        log(f"  stage {nm:18s} host {h_ms:8.3f} ms  device {d_ms:8.3f} ms")
+    log(f"  sum of stages      host "
+        f"{sum(v[0] for v in stages.values()):8.3f} ms  device "
+        f"{sum(v[1] for v in stages.values()):8.3f} ms")
+
+    lib = _build.library()
+
+    def alone(seen, n):
+        return device_ms(torch, cycles_per_ms,
+                         replayer(torch, _build, lib, seen), n)
+
+    with torch.no_grad():
+        mean = torch.zeros(B, device=dev)
+        y_dec = H.decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
+        filt = H.band_filter(y_dec, gk)
+        bounds_ = torch.as_tensor(gk.boundary_f0, dtype=torch.float32,
+                                  device=dev)
+        zargs = zc_kernel.geometry_args(gk)
+        zk, z_seen = capture(_build, lambda: zc_kernel.band_candidates_cuda(
+            filt, bounds_, **zargs))
+        zp = zc_kernel.band_candidates_plain(filt, bounds_, **zargs)
+        z_ms = alone(z_seen, 30)
+        cand, _, _ = H.candidates_stage(y_dec, mean, gk)
+        tp = torch.arange(gk.f0_length, dtype=torch.float32,
+                          device=dev) * (GRID_FAST / 1000.0)
+        prep = refine_kernel.prepare(y_dec, cand, tp, geo=gk,
+                                     dedup_tol=H.REFINE_DEDUP_TOL)
+        rk_args = prep["kernel_args"]
+        rkw = dict(hwmax=gk.max_half_window, n_fft=gk.refine_fft)
+        rk, r_seen = capture(_build, lambda: refine_kernel.spectral_sums_cuda(
+            *rk_args, **rkw))
+        rp = refine_kernel.spectral_sums_plain(*rk_args, **rkw)
+        rerr = float((rk - rp).abs().max())
+        rscale = float(rp.abs().max())
+        fk, _ = refine_kernel.finish(rk, prep, geo=gk)
+        fp, _ = refine_kernel.finish(rp, prep, geo=gk)
+        fboth = (fk > 0) & (fp > 0)
+        frel = float(((fk - fp).abs() / fp.clamp(min=1e-3))[fboth].max())
+        fflips = int(((fk > 0) != (fp > 0)).sum())
+        r_ms = alone(r_seen, 30)
+        # the extend walk of the grid-2 contour chain: its own arguments
+        hcand, hscore = H.harvest_device_stages(x, mean, geo=geo,
+                                                grid=GRID_FAST)
+        seen = []
+        real_walk = extend_kernel.extend_walk
+
+        def spy(*a_, **k_):
+            seen.append((a_, k_))
+            return real_walk(*a_, **k_)
+
+        extend_kernel.extend_walk = spy
+        try:
+            CDV.fix_and_smooth(hcand, hscore, geo.n_grid(), geo.frame_period,
+                               grid_ms=GRID_FAST)
+        finally:
+            extend_kernel.extend_walk = real_walk
+        wargs, wkw = seen[0]
+        ek, e_seen = capture(_build, lambda: extend_kernel.extend_walk_cuda(
+            *wargs, **wkw))
+        ep = extend_kernel.extend_walk_plain(*wargs, **wkw)
+        e_same = all(torch.equal(a_, b_) for a_, b_ in zip(ek, ep))
+        e_ms = alone(e_seen, 100)
+    log(f"(a) kernels at the grid-2 shapes against their plain versions: zc "
+        f"filt {tuple(filt.shape)} -> {tuple(zk.shape)} (grid_hz "
+        f"{zargs['grid_hz']:g}), equal {torch.equal(zk, zp)} (tol 0), "
+        f"device time alone {z_ms:.4f} ms; refine {int(rk_args[4].sum())} "
+        f"active pairs in {gk.f0_length} frames, max abs err {rerr:.3e} of "
+        f"max |sum| {rscale:.3e} (tol {REFINE_REL} rel), refined F0 max rel "
+        f"{frel:.2e} (tol {REFINE_F0_REL}), flips {fflips} (tol 0), "
+        f"{r_ms:.4f} ms; extend {len(seen)} walk call, ext_lim "
+        f"{wkw['ext_lim']} (E = {wkw['ext_lim'] + 1}), miss_lim "
+        f"{wkw['miss_lim']}, {tuple(ek[2].shape)} walks, longest "
+        f"{int(ek[2].max())} steps, equal in vals/scs/n_on/so {e_same} (tol "
+        f"0), {e_ms:.4f} ms  [{card}]")
+    if (not torch.equal(zk, zp) or rerr > REFINE_REL * rscale
+            or frel > REFINE_F0_REL or fflips or not e_same
+            or len(seen) != 1
+            or (wkw["ext_lim"], wkw["miss_lim"]) != (50, 2)):
+        raise AssertionError("a kernel disagrees with its plain version at "
+                             "the grid-2 shapes")
+    del filt, zk, zp, cand, prep, rk, rp, hcand, hscore, seen
+
+    fixd = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures"
+    x16, fs16, _ = W_.wavread(str(fixd / "t16.wav"))
+    gold, _, _ = P_.read_f0(str(fixd / "t16.f0.gz"))
+    hk = H.HarvestKernel(fs16, len(x16), device=dev, grid_ms=GRID_FAST)
+    hk.compute(x16)
+    t0 = time.perf_counter()
+    f16, _ = hk.compute(x16)
+    h_ms = (time.perf_counter() - t0) * 1000
+    ref = gold[:len(f16)]
+    vb = (f16 > 0) & (ref > 0)
+    vuv = float(np.mean((f16 > 0) == (ref > 0)))
+    rmse = float(np.sqrt(np.mean((f16[vb] - ref[vb]) ** 2)))
+    medv = float(np.median(np.abs(f16[vb] - ref[vb])))
+    log(f"(a) HarvestKernel(grid_ms=2).compute on t16 against the C++ F0: "
+        f"vuv {vuv:.4f} (gate > {GRID_VUV}), RMSE {rmse:.3f} Hz (gate < "
+        f"{GRID_RMSE_HZ}), median {medv:.4f} Hz (gate < {GRID_MEDIAN_HZ}); "
+        f"{h_ms:.1f} ms  [{card}]")
+    if not (vuv > GRID_VUV and rmse < GRID_RMSE_HZ
+            and medv < GRID_MEDIAN_HZ):
+        raise AssertionError("grid 2 on t16 outside tests/test_harvest.py's "
+                             "gates")
+    log(f"phase 10(a) wall: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
+    """Phase 10(b): float64 long audio on the card.  One LongHarvest
+    window's peak memory; on phase 9's parity cut x60,
+    LongPipeline.copy_synthesis(dtype=torch.float64) sequential and
+    parallel (walls, LongHarvest's split, peaks; F0 against phase 9's
+    float32 LongHarvest f0_32 of the cut, parallel against sequential);
+    the OLA kernel's double instantiation and the sequential cumulative
+    sum at the chunk shapes against their plain versions; x150 sequential
+    (wall, realtime factor, bounded memory).  Returns the launches of the
+    x150 run (from 0)."""
+    from worldtpu_torch import _build
+    from worldtpu_torch import longaudio as LA
+    from worldtpu_torch.analysis import longform as LF
+    from worldtpu_torch.ops import ola_kernel, seqsum
+    from worldtpu_torch.synthesis import noise as N
+
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    lp = LA.LongPipeline(FS, f0_floor=LONG_FLOOR,
+                         chunk_frames=LONG_CHUNK_FRAMES,
+                         harvest_chunk_ms=HARVEST_CHUNK_MS,
+                         harvest_halo_ms=HARVEST_HALO_MS, device=dev)
+    lh = lp.harvest
+    syn = dict(seed=LONG_SEED, pitch_scale=PITCH, duration_scale=DUR,
+               dtype=f64)
+    x60 = x60.astype(np.float64)
+    x150 = x150.astype(np.float64)
+
+    def peak_reset():
+        """Reset the peak; return the bytes allocated now (the earlier
+        phases' tensors and caches, under every later peak)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def gib(b):
+        return b / 2 ** 30
+
+    # one window of the float64 LongHarvest: the peak that sizes its batch
+    lh.compute(x60[:lh.stride], dtype=f64)
+    base = peak_reset()
+    lh.compute(x60[:lh.stride], dtype=f64)
+    peak1 = torch.cuda.max_memory_allocated()
+    m64 = LF.MAX_BATCH[f64]
+    log(f"(b) float64 LongHarvest, one window of {lh.Tc} samples: peak "
+        f"device memory {gib(peak1):.3f} GiB, {gib(peak1 - base):.3f} GiB "
+        f"above the {gib(base):.3f} GiB held before it; batches of "
+        f"MAX_BATCH[float64] = {m64} windows (float32: "
+        f"{LF.MAX_BATCH[torch.float32]})  [{card}]")
+
+    # the cut through the pipeline, both modes; LongHarvest timed in its
+    # parts (its stages synchronized at their end: float64's refine loop
+    # waits on the host every 16 frames anyway, so no download overlaps
+    # them), the OLA launches of the first chunk and of the first parallel
+    # group kept for the kernel checks
+    lp.copy_synthesis(x60[:12 * FS], **syn)          # warm-up: plans
+    split = collections.Counter()
+    real_s, real_c, real_h = LF.harvest_device_stages, lh._candidates, \
+        lh._contour
+
+    def timed(name, fn, sync=False):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            split[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    ola_seen = {}                  # the first chunk's, the first group's
+    real_ola = LA.overlap_add
+
+    def ola_spy(resp, starts, out_length, n_pulses):
+        ola_seen.setdefault("group" if resp.shape[0] > 1 else "chunk",
+                            (resp, starts, out_length, n_pulses))
+        return real_ola(resp, starts, out_length, n_pulses)
+
+    mem = {}
+
+    def harvest_peak(fn):
+        """fn (LongHarvest's stages and downloads), recording the peak up
+        to its end and resetting it, so that the run's last peak is the
+        analysis' and synthesis'."""
+        def call(*a, **k):
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            mem["harvest"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            return out
+        return call
+
+    def run_peak():
+        """(the run's peak, LongHarvest's, the rest's) after a run."""
+        rest = torch.cuda.max_memory_allocated()
+        return max(mem["harvest"], rest), mem["harvest"], rest
+
+    out, walls, peaks, splits, parts = {}, {}, {}, {}, {}
+    LF.harvest_device_stages = timed("stages", real_s, sync=True)
+    lh._candidates = timed("candidates", harvest_peak(real_c))
+    lh._contour = timed("host contour", real_h)
+    LA.overlap_add = ola_spy
+    try:
+        for par in (False, True):
+            split.clear()
+            peak_reset()
+            t0 = time.perf_counter()
+            out[par] = lp.copy_synthesis(x60, parallel=par, **syn)
+            walls[par] = time.perf_counter() - t0
+            peaks[par], *parts[par] = run_peak()
+            splits[par] = dict(split)
+    finally:
+        LF.harvest_device_stages = real_s
+        del lh._candidates, lh._contour
+        LA.overlap_add = real_ola
+    dur = len(x60) / FS
+    n_w = lh.n_chunks(len(x60))
+    for par, name in ((False, "sequential"), (True, "parallel")):
+        sp = splits[par]
+        rest = walls[par] - sp["candidates"] - sp["host contour"]
+        log(f"(b) float64 LongPipeline, {dur:.2f} s, {name}: wall "
+            f"{walls[par]:.2f} s = {dur / walls[par]:.2f}x realtime; "
+            f"LongHarvest ({n_w} windows in {-(-n_w // m64)} batches): "
+            f"device stages {sp['stages']:.3f} s, downloads and stitching "
+            f"{sp['candidates'] - sp['stages']:.3f} s, host contour "
+            f"{sp['host contour']:.3f} s; the rest (analysis and synthesis)"
+            f" {rest:.3f} s; peak device memory {gib(peaks[par]):.3f} GiB "
+            f"({gib(peaks[par] - base):.3f} above the window run's base; "
+            f"LongHarvest {gib(parts[par][0]):.3f}, analysis and synthesis "
+            f"{gib(parts[par][1]):.3f})  [{card}]")
+    (ys, f0s), (yp, f0p) = out[False], out[True]
+    a, b = f0s, f0_32 * PITCH
+    both = (a > 0) & (b > 0)
+    agree = float(((a > 0) == (b > 0)).mean())
+    d = np.abs(a - b)[both] / PITCH
+    rel = windowed_rel(yp, ys)
+    q99, q90 = float(np.quantile(rel, 0.99)), float(np.quantile(rel, 0.9))
+    rms = float(np.sqrt(np.mean(ys ** 2)))
+    log(f"(b) float64 F0 against phase 9's float32 LongHarvest of the cut: "
+        f"voicing agreement {agree:.5f} (gate >= {F64_VOICING}), median "
+        f"|dF0| {float(np.median(d)):.3e} Hz (gate < {F64_F0_MEDIAN_HZ}), "
+        f"RMSE {float(np.sqrt(np.mean(d ** 2))):.3f} Hz, max "
+        f"{float(d.max()):.2f} Hz; parallel against sequential: F0 identical "
+        f"{np.array_equal(f0s, f0p)}, windowed relative error q90 {q90:.2e} "
+        f"(gate {WINDOW_Q90}), q99 {q99:.2e} (gate {PARITY_Q99}), max "
+        f"{float(rel.max()):.2e}; output {len(ys)} samples, rms {rms:.4f}")
+    if (agree < F64_VOICING or not float(np.median(d)) < F64_F0_MEDIAN_HZ
+            or not np.array_equal(f0s, f0p) or q99 >= PARITY_Q99
+            or q90 >= WINDOW_Q90 or ys.dtype != np.float64
+            or not np.isfinite(ys).all() or rms < 0.01):
+        raise AssertionError("float64 long audio on the card")
+
+    # ---- OLA double and the sequential cumsum at the chunk shapes ----
+    with torch.no_grad():
+        lines = []
+        for resp, starts_, out_l, n_own in ola_seen.values():
+            ok_, o_seen = capture(_build, lambda: ola_kernel.overlap_add_cuda(
+                resp, starts_, out_l, n_own))
+            op = ola_kernel.overlap_add_plain(resp, starts_, out_l, n_own)
+            err = float((ok_ - op).abs().max())
+            scale = float(op.abs().max())
+            o_ms = device_ms(torch, cycles_per_ms, replayer(
+                torch, _build, _build.library(), o_seen), 50)
+            lines.append(f"resp {tuple(resp.shape)} -> {tuple(ok_.shape)}, "
+                         f"{int(n_own.sum())} owned pulses, max abs err "
+                         f"{err:.3e} of max |y| {scale:.3e} (tol "
+                         f"{OLA_F64_REL} relative), {o_ms:.4f} ms")
+            if o_seen[0][0] != "wt_ola_f64" or err > OLA_F64_REL * scale:
+                raise AssertionError("the float64 OLA kernel disagrees with "
+                                     "its plain version at the chunk shapes")
+        p = lp.plan(x60, f0s, DUR, f64)
+        k = p.n_chunks // 2
+        carries, ords, _ = LA._phase_prescan(p, dev)
+        _, c_seen = capture(_build, lambda: LA._chunk_step(
+            p, k, k + 1, carries[k:k + 1], ords[k:k + 1],
+            N.as_key(LONG_SEED)))
+        torch.cuda.synchronize()
+        c_seen = [c for c in c_seen if c[0] == "wt_seq_cumsum_f64"]
+        shapes = []
+        for _, _, (cx, cout, n_rows, n) in c_seen:
+            want = np.cumsum(cx.cpu().numpy().reshape(n_rows, n), axis=-1)
+            got = cout.cpu().numpy().reshape(n_rows, n)
+            shapes.append((n_rows, n))
+            if not np.array_equal(got, want, equal_nan=True):
+                raise AssertionError(f"the sequential cumulative sum "
+                                     f"disagrees with numpy.cumsum at "
+                                     f"{(n_rows, n)}")
+        big = max(c_seen, key=lambda c: c[2][2] * c[2][3])
+        xs_t = big[2][0]
+        plain_same = torch.equal(seqsum.cumsum_sequential_plain(xs_t),
+                                 seqsum.cumsum_sequential_cuda(xs_t))
+        c_ms = device_ms(torch, cycles_per_ms, replayer(
+            torch, _build, _build.library(), [big]), 20)
+    log("(b) OLA double at the float64 chunk shapes (a chunk, a parallel "
+        "group): " + "; ".join(lines) + f"  [{card}]")
+    log(f"(b) seq_cumsum: {len(c_seen)} launches of one float64 chunk step, "
+        f"shapes {sorted(set(shapes))}: each equal to numpy.cumsum of its "
+        f"input True (tol 0); the largest {big[2][2:]} equal to the plain "
+        f"version {plain_same}, {c_ms:.4f} ms device time alone  [{card}]")
+    if len(c_seen) < 2 or not plain_same:
+        raise AssertionError("the sequential cumulative sum at the float64 "
+                             "chunk shapes")
+    del ola_seen, p, carries, ords, c_seen, big, xs_t
+
+    # ---- the first 150 s, sequential: bounded memory ----
+    def grow(x, f0):
+        pl = lp.plan(x, f0, DUR, f64)
+        return nbytes(pl.x_dev, pl.f0_dev, pl.cf0_dev, pl.cvuv_dev,
+                      pl.o0_dev, pl.flo_dev, pl.tpos_dev,
+                      lh._windows(x, f64)[0])
+
+    _build.launches.clear()
+    peak_reset()
+    lh._candidates = harvest_peak(real_c)
+    try:
+        t0 = time.perf_counter()
+        y150, f150 = lp.copy_synthesis(x150, **syn)
+        w150 = time.perf_counter() - t0
+    finally:
+        del lh._candidates
+    peak150, *parts150 = run_peak()
+    counts = dict(_build.launches)
+    extra = grow(x150, f150) - grow(x60, f0s)
+    limit = (peaks[False] + extra) * (1 + MEM_MARGIN)
+    n_h = lh.n_chunks(len(x150))
+    p150 = lp.plan(x150, f150, DUR, f64)
+    p60 = lp.plan(x60, f0s, DUR, f64)
+    log(f"(b) float64 {len(x150) / FS:.1f} s, sequential: wall {w150:.2f} "
+        f"s = {len(x150) / FS / w150:.2f}x realtime; peak device memory "
+        f"{gib(peak150):.3f} GiB (LongHarvest {gib(parts150[0]):.3f}, "
+        f"analysis and synthesis {gib(parts150[1]):.3f}) against "
+        f"{gib(peaks[False]):.3f} GiB at "
+        f"{dur:.2f} s + {extra / 1e6:.1f} MB of input and F0 tables, + "
+        f"{100 * MEM_MARGIN:.0f}%: limit {gib(limit):.3f} GiB; "
+        f"{n_h} Harvest windows in {-(-n_h // m64)} batches, "
+        f"{p150.n_chunks} synthesis chunks of Pmax {p150.Pmax} pulse slots "
+        f"({p60.Pmax} at {dur:.2f} s: the bound follows the highest F0); "
+        f"launches {counts}; "
+        f"{len(x150) / FS:.0f} s and not {LONG_S} s: float64 runs at a few "
+        f"times realtime  [{card}]")
+    if (peak150 > limit or not np.isfinite(y150).all()
+            or len(y150) != p150.out_length
+            or counts.get("wt_ola_f64", 0) != p150.n_chunks
+            or counts.get("wt_seq_cumsum_f64", 0) < p150.n_chunks
+            or any(k_ in counts for k_ in MAIN_KERNELS)):
+        raise AssertionError("float64 long audio, bounded memory")
+    log(f"phase 10(b) wall: {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 if __name__ == "__main__":

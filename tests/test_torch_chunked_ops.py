@@ -127,8 +127,8 @@ def test_per_row_positions_equal_rows_one_by_one(dtype):
 def test_sample_offset_slices_equal_the_whole_recording():
     """Rows that are slices of one recording, with the recording's frame
     times and each slice's first sample (sample_offset), give the frames
-    the whole recording gives (float32: the long-audio blocks); float64
-    D4C rejects the offset."""
+    the whole recording gives, in float32 and in float64 (the long-audio
+    blocks of either dtype)."""
     x, f0, tp = _inputs(torch.float32)
     ck = CheapTrickKernel(FS)
     kw = dict(fs=FS, fft_size=ck.fft_size, max_half_window=ck.max_half_window)
@@ -150,9 +150,19 @@ def test_sample_offset_slices_equal_the_whole_recording():
     for g, (lo, hi) in enumerate(blocks):
         assert torch.equal(spec[g, :hi - lo], whole_s[lo:hi])
         assert torch.equal(ap[g, :hi - lo], whole_a[lo:hi])
-    with pytest.raises(ValueError, match="float32"):
-        d4c_frames(xs.double(), f0s.double(), rows.double(), fs=FS,
-                   fft_size_out=ck.fft_size, sample_offset=a0)
+    x, f0, tp = (t.double() for t in (x, f0, tp))
+    rows = torch.stack([tp[lo:lo + Fb] for lo, _ in blocks])
+    whole_s = cheaptrick_frames(x[:1], f0[:1], tp, **kw)[0]
+    whole_a = d4c_frames(x[:1], f0[:1], tp, fs=FS,
+                         fft_size_out=ck.fft_size)[0]
+    spec = cheaptrick_frames(xs.double(), f0s.double(), rows,
+                             sample_offset=a0, **kw)
+    ap = d4c_frames(xs.double(), f0s.double(), rows, fs=FS,
+                    fft_size_out=ck.fft_size, sample_offset=a0)
+    assert spec.dtype == ap.dtype == torch.float64
+    for g, (lo, hi) in enumerate(blocks):
+        assert torch.equal(spec[g, :hi - lo], whole_s[lo:hi])
+        assert torch.equal(ap[g, :hi - lo], whole_a[lo:hi])
 
 
 def test_frame_offset_block_equals_whole_spectrogram():

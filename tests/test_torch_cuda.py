@@ -785,3 +785,95 @@ def test_per_row_positions_on_card(dev):
     torch.testing.assert_close(sg.cpu(), sc, rtol=1e-3,
                                atol=1e-6 * float(sc.abs().max()))
     torch.testing.assert_close(ag.cpu(), ac, rtol=0, atol=1e-4)
+
+
+def test_grid_2_main_path_on_card_matches_cpu(dev):
+    """batch_wav_to_wav(grid_ms=2) on the card: zc, refine, OLA and extend
+    each launched once, the extend walk at ext_lim 50 and miss_lim 2, and
+    the card against the CPU at phase 5's gates of chip_smoke.py (voicing
+    agreement >= 0.97, F0 RMSE on voiced <= 1 Hz, short-time RMS within
+    0.02: the card divides by a Python scalar through its reciprocal, so
+    a knife-edge sample can move a pulse and the later noise rows)."""
+    fs = 22050
+    x = _vowels(fs, 2)
+    geo = TH.HarvestGeometry(fs, x.shape[1], f0_floor=40.0)
+    ck = CheapTrickKernel(fs)
+    out_len = int((geo.n_grid() - 1) * 0.00625 * fs) + 1
+    mp = TS.capacity_max_pulses(out_len, fs, f0_cap=600.0)
+    noise = TS.make_noise(torch.Generator().manual_seed(0), 2, mp,
+                          ck.fft_size)
+    kw = dict(geo=geo, fs=fs, fft_size=ck.fft_size,
+              max_half_window=ck.max_half_window, frame_period_s=0.00625,
+              out_length=out_len, max_pulses=mp, pitch_scale=1.2,
+              return_overflow=True, grid_ms=2)
+    seen = []
+    real = TE.extend_walk
+
+    def spy(*a, **k):
+        seen.append(k)
+        return real(*a, **k)
+
+    _build.launches.clear()
+    TE.extend_walk = spy
+    try:
+        yg, fg, ovf = TB.batch_wav_to_wav(torch.tensor(x, device=dev),
+                                          noise.to(dev), **kw)
+        torch.cuda.synchronize()
+    finally:
+        TE.extend_walk = real
+    assert {k: _build.launches[k] for k in ("wt_zc", "wt_refine_sums",
+                                            "wt_ola", "wt_extend")} == \
+        {"wt_zc": 1, "wt_refine_sums": 1, "wt_ola": 1, "wt_extend": 1}
+    assert [(k["ext_lim"], k["miss_lim"]) for k in seen] == [(50, 2)]
+    yc, fc, _ = TB.batch_wav_to_wav(torch.tensor(x), noise, **kw)
+    fg, fc = fg.cpu().numpy(), fc.numpy()
+    assert not bool(ovf.any()) and bool(torch.isfinite(yg).all())
+    assert ((fg > 0) == (fc > 0)).mean() >= 0.97
+    both = (fg > 0) & (fc > 0)
+    assert both.mean() > 0.3
+    assert np.sqrt(np.mean((fg[both] - fc[both]) ** 2)) <= 1.0
+    eg = np.stack([_short_time_rms(r, 160) for r in yg.cpu().numpy()])
+    ec = np.stack([_short_time_rms(r, 160) for r in yc.numpy()])
+    assert np.abs(eg - ec).max() < 0.02
+
+
+def test_long_pipeline_f64_on_card_matches_cpu(dev):
+    """LongPipeline(dtype=torch.float64) on the card: no float32 kernel,
+    the OLA kernel's double instantiation once per chunk and the
+    sequential cumulative sum; LongHarvest in float64 on the card against
+    the CPU (voicing identical, F0 within 1e-6 Hz: cuFFT against
+    pocketfft); the synthesis on one F0 (the card's) at envelope level, as
+    test_long_pipeline_on_card_matches_cpu holds float32; on the card the
+    parallel mode gives the sequential mode's waveform (q99 < 1e-3)."""
+    fs = 16000
+    x = _long_utterance(fs, 6.0, seed=2).astype(np.float64)
+    kw = dict(f0_floor=40.0, chunk_frames=400, harvest_chunk_ms=3000)
+    syn = dict(seed=7, pitch_scale=1.2, duration_scale=1.25,
+               dtype=torch.float64)
+    lpg = TLA.LongPipeline(fs, device=dev, **kw)
+    lpc = TLA.LongPipeline(fs, device="cpu", **kw)
+    _build.launches.clear()
+    yg, f0g = lpg.copy_synthesis(x, **syn)
+    counts = dict(_build.launches)
+    n_chunks = -(-len(yg) // int(round(400 * 0.00625 * fs)))
+    assert counts["wt_ola_f64"] == n_chunks
+    assert counts["wt_seq_cumsum_f64"] >= n_chunks
+    assert not any(k in counts for k in ("wt_zc", "wt_refine_sums",
+                                         "wt_ola", "wt_extend"))
+    fg, tp = lpg.harvest.compute(x, dtype=torch.float64)
+    fc, _ = lpc.harvest.compute(x, dtype=torch.float64)
+    np.testing.assert_array_equal(fg * 1.2, f0g)
+    assert np.array_equal(fg > 0, fc > 0) and (fg > 0).mean() > 0.6
+    np.testing.assert_allclose(fg, fc, rtol=0, atol=1e-6)
+    lpc.harvest.compute = lambda x, dtype=None: (fg, tp)
+    yc, _ = lpc.copy_synthesis(x, **syn)
+    assert yg.dtype == np.float64 and yg.shape == yc.shape
+    assert np.isfinite(yg).all()
+    eg, ec = _short_time_rms(yg, 1600), _short_time_rms(yc, 1600)
+    env = np.abs(eg - ec) / np.maximum(ec, np.median(ec) * 1e-3)
+    assert np.quantile(env, 0.95) < 0.02
+    assert abs(np.sqrt(np.mean(eg ** 2)) / np.sqrt(np.mean(ec ** 2)) - 1) \
+        < 0.01
+    yp, f0p = lpg.copy_synthesis(x, parallel=True, **syn)
+    np.testing.assert_array_equal(f0p, f0g)
+    assert np.quantile(_windowed_rel(yp, yg, fs), 0.99) < 1e-3

@@ -25,7 +25,8 @@ def test_geometry_fields_equal(fs, f0_floor):
     geo = H.HarvestGeometry(fs, x_length, f0_floor=f0_floor)
     mine = TH.HarvestGeometry(fs, x_length, f0_floor=f0_floor)
     fields = {k: v for k, v in vars(geo).items() if k != "_grid_cache"}
-    assert set(fields) == set(vars(mine))
+    assert set(fields) == set(vars(mine)) - {"_grid_cache"}
+    assert geo._grid_cache == mine._grid_cache == {}
     for k, v in fields.items():
         if isinstance(v, np.ndarray):
             np.testing.assert_array_equal(getattr(mine, k), v, err_msg=k)
@@ -98,7 +99,9 @@ def test_no_jax_import_in_sources():
     assert {root / "codec.py", root / "io" / "corpus.py",
             root / "analysis" / "harvest.py", root / "native.py",
             root / "longaudio.py", root / "analysis" / "longform.py",
-            root / "synthesis" / "noise.py"} <= set(paths)
+            root / "synthesis" / "noise.py", root / "api.py",
+            root / "cli.py", root / "parallel" / "batch.py",
+            root / "analysis" / "d4c.py"} <= set(paths)
     for path in paths:
         for line in path.read_text().splitlines():
             assert not banned.match(line), (path, line)

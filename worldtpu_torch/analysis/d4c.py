@@ -74,12 +74,14 @@ def _centered_window(seg, f0, fs, window_type, ratio, max_half):
 
 
 def _windowed_waveform_f64(x, f0, position, fs, window_type, ratio,
-                           max_half, dither=None):
+                           max_half, dither=None, sample_offset=None):
     """D4C::getWindowedWaveform, literal: x [B, T], f0 [B, F], position
     [B, F] or [F] -> [B, F, 2*max_half+1], left-aligned (column j is window
     sample j - half) and zero past the window.  ``dither`` [B, F, W] is
     the reference's ``randn() * kMySafeGuardMinimum``, added to the windowed
-    waveform before the weighting step."""
+    waveform before the weighting step.  ``sample_offset`` [B]: row b of x
+    starts at that sample of the recording whose times ``position`` are
+    (the origin is rounded on them, then taken relative to the row)."""
     dt = x.dtype
     dev = x.device
     B = x.shape[0]
@@ -89,6 +91,8 @@ def _windowed_waveform_f64(x, f0, position, fs, window_type, ratio,
     base = j - half[..., None]
     in_win = j <= 2 * half[..., None]
     origin = matlab_round(position.to(dt) * fs + 0.001).expand(half.shape)
+    if sample_offset is not None:
+        origin = origin - sample_offset.to(origin.dtype)[:, None]
     safe = (origin[..., None] + base).clamp(0, x.shape[-1] - 1).long()
     seg = torch.gather(x, 1, safe.reshape(B, -1)).reshape(safe.shape)
     pf = C.PI * f0[..., None] * ((2.0 / ratio / fs) * base.to(dt))
@@ -107,7 +111,8 @@ def _windowed_waveform_f64(x, f0, position, fs, window_type, ratio,
     return torch.where(in_win, wave - win * weight, zero)
 
 
-def love_train_ap0(x, f0, temporal_positions, *, fs, lt_dither=None):
+def love_train_ap0(x, f0, temporal_positions, *, fs, lt_dither=None,
+                   sample_offset=None):
     """The LoveTrain voicing ratio alone (float64): the cumulative power at
     4000 Hz over that at 7900 Hz of a Blackman 3-period frame, 0 where f0
     is 0; x [B, T], f0 [B, F] -> [B, F].  Equal to the gate inside
@@ -118,7 +123,7 @@ def love_train_ap0(x, f0, temporal_positions, *, fs, lt_dither=None):
     fft_lt = love_train_fft_size(fs)
     wave_lt = _windowed_waveform_f64(
         x, torch.clamp(f0, min=40.0), temporal_positions, fs, C.BLACKMAN,
-        3.0, d4c_max_half_lt(fs), lt_dither)
+        3.0, d4c_max_half_lt(fs), lt_dither, sample_offset)
     spec_lt = dft.rfft(wave_lt, n=fft_lt)
     ps_lt = spec_lt.real ** 2 + spec_lt.imag ** 2
     b0 = int(math.ceil(100.0 * fft_lt / fs))
@@ -132,7 +137,7 @@ def love_train_ap0(x, f0, temporal_positions, *, fs, lt_dither=None):
 
 def _d4c_frames_f64(x, f0, pos, *, fs, fft_size_out, threshold,
                     f0_ceil_bound, lt_dither, c1_dither, c2_dither,
-                    h_dither):
+                    h_dither, sample_offset=None):
     """The float64 parity branch of ``d4c_frames``."""
     dt = x.dtype
     dev = x.device
@@ -143,7 +148,8 @@ def _d4c_frames_f64(x, f0, pos, *, fs, fft_size_out, threshold,
     Ko = fft_size_out // 2 + 1
     max_half_c = d4c_max_half_c(fs)
 
-    ap0 = love_train_ap0(x, f0, pos, fs=fs, lt_dither=lt_dither)
+    ap0 = love_train_ap0(x, f0, pos, fs=fs, lt_dither=lt_dither,
+                         sample_offset=sample_offset)
     active = (f0 != 0.0) & (ap0 > threshold)
     f0d = torch.clamp(f0, min=C.FLOOR_F0_D4C)
     f0_rows = f0d.reshape(-1)
@@ -152,7 +158,7 @@ def _d4c_frames_f64(x, f0, pos, *, fs, fft_size_out, threshold,
 
     def centroid(at, dither):
         w = _windowed_waveform_f64(x, f0d, at, fs, C.BLACKMAN, 4.0,
-                                   max_half_c, dither)
+                                   max_half_c, dither, sample_offset)
         w = w / torch.sqrt(torch.sum(w * w, -1, keepdim=True))
         s1 = dft.rfft(w, n=fft_d4c)
         s2 = dft.rfft(w * ramp, n=fft_d4c)
@@ -170,7 +176,7 @@ def _d4c_frames_f64(x, f0, pos, *, fs, fft_size_out, threshold,
     static_centroid = dc_corr(centroid(pos - quarter, c1_dither)
                               + centroid(pos + quarter, c2_dither))
     wave_h = _windowed_waveform_f64(x, f0d, pos, fs, C.HANNING, 4.0,
-                                    max_half_c, h_dither)
+                                    max_half_c, h_dither, sample_offset)
     spec_h = dft.rfft(wave_h, n=fft_d4c)
     max_b = int(1.2 * f0_ceil_bound * fft_d4c / fs) + 2
     sps = smooth(dc_corr(spec_h.real ** 2 + spec_h.imag ** 2), f0d, max_b)
@@ -239,8 +245,7 @@ def d4c_frames(x, f0, temporal_positions, *, fs, fft_size_out,
         sample_offset: optional [B] int tensor: row b of x starts at sample
             sample_offset[b] of a longer recording whose frame times
             temporal_positions are; window origins are rounded on those
-            times, then taken relative to the row.  float32 only (the
-            long-audio path).
+            times, then taken relative to the row (the long-audio path).
 
     Returns:
         [B, F, fft_size_out//2 + 1] aperiodicity in (0, 1].
@@ -248,13 +253,12 @@ def d4c_frames(x, f0, temporal_positions, *, fs, fft_size_out,
     dt = x.dtype
     dithers = (lt_dither, c1_dither, c2_dither, h_dither)
     if dt == torch.float64:
-        if sample_offset is not None:
-            raise ValueError("sample_offset belongs to the float32 path")
         return _d4c_frames_f64(
             x, f0.to(dt), temporal_positions.to(dt), fs=fs,
             fft_size_out=fft_size_out, threshold=threshold,
             f0_ceil_bound=f0_ceil_bound, lt_dither=lt_dither,
-            c1_dither=c1_dither, c2_dither=c2_dither, h_dither=h_dither)
+            c1_dither=c1_dither, c2_dither=c2_dither, h_dither=h_dither,
+            sample_offset=sample_offset)
     if any(d is not None for d in dithers):
         raise ValueError("the parity dithers belong to the float64 path")
     dev = x.device

@@ -5,9 +5,13 @@ Port of worldtpu/analysis/harvest.py (reference src/harvest.cpp): decimate
 (zc kernel) -> per-frame run detection -> +-3-frame overlap -> refinement
 (refine kernel) -> neighbour-consistency pruning -> device contour chain.
 Every stage takes a leading batch axis B where the JAX package vmapped.
-The internal candidate grid is the reference's 1 ms grid.  Each stage of
-the main path runs inside a ``torch.profiler.record_function`` range named
-``wt.<stage>``, so one profiled call gives the time of every stage.
+The internal candidate grid is the reference's 1 ms grid; float32 callers
+may pass ``grid`` (``grid_ms`` on the classes) = k > 1 for a k ms grid, the
+JAX package's ``WORLDTPU_GRID_MS`` fast mode as an argument: every
+per-frame stage and the contour chain then run on 1/k of the frames.  Each
+stage of the main path runs inside a ``torch.profiler.record_function``
+range named ``wt.<stage>``, so one profiled call gives the time of every
+stage.
 
 float32 is the production path above.  float64 is the parity path, with the
 reference's literal semantics and no hand-written kernel (the JAX package's
@@ -90,7 +94,28 @@ class HarvestGeometry:
         dur = x_length / fs
         self.e_max = int(min(self.y_length // 2 + 2,
                              dur * adj_ceil * 1.8 + 64))
+        #: internal candidate-grid period (ms): 1, the reference's grid;
+        #: with_grid(k) derives the geometry of a k ms grid
         self.grid_ms = 1
+        self._grid_cache = {}
+
+    def with_grid(self, k):
+        """This geometry on a k ms candidate grid (the reference's
+        getSamples at frame_period k for f0_length), memoized: the same
+        object comes back for the same k, so the per-geometry caches
+        (filter banks, zc bounds and plans, refine twiddles) build once."""
+        if k == self.grid_ms:
+            return self
+        if k not in self._grid_cache:
+            g = HarvestGeometry(
+                self.fs, self.x_length, f0_floor=self.f0_floor,
+                f0_ceil=self.f0_ceil, frame_period=self.frame_period,
+                target_fs=self.target_fs,
+                channels_in_octave=self.channels_in_octave)
+            g.f0_length = 1 + int(1000.0 * self.x_length / self.fs / k)
+            g.grid_ms = k
+            self._grid_cache[k] = g
+        return self._grid_cache[k]
 
     def n_grid(self):
         """Output frames at frame_period (reference getSamples)."""
@@ -505,19 +530,35 @@ def _stages_f64(y, mean_y, geo):
     return remove_unreliable_stage(cand, score)
 
 
-def harvest_device_stages(x, mean_y, *, geo):
-    """decimate -> candidates -> refine -> prune for x [B, T].
-    Returns (candidates, scores) [B, F, S]: refined slots compacted for
-    float32, in the candidates' own slots for float64."""
+def check_grid(dtype, grid):
+    """Raise ValueError unless the candidate-grid period ``grid`` (ms) is a
+    positive int, and 1 for float64 (the parity path runs the reference's
+    1 ms grid; the JAX package pins it there)."""
+    if isinstance(grid, bool) or not isinstance(grid, (int, np.integer)) \
+            or grid < 1:
+        raise ValueError(f"grid_ms must be a positive int, got {grid!r}")
+    if dtype == torch.float64 and grid != 1:
+        raise ValueError(f"grid_ms={grid}: the float64 parity path runs the "
+                         f"reference's 1 ms grid only")
+
+
+def harvest_device_stages(x, mean_y, *, geo, grid=1):
+    """decimate -> candidates -> refine -> prune for x [B, T] on the
+    ``grid`` ms candidate grid (float32; float64 takes 1 only).
+    Returns (candidates, scores) [B, F, S], F = geo.with_grid(grid)
+    .f0_length: refined slots compacted for float32, in the candidates' own
+    slots for float64."""
+    check_grid(x.dtype, grid)
+    geo_k = geo.with_grid(grid)
     with record_function("wt.decimate"):
         y = decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
     if x.dtype == torch.float64:
         return _stages_f64(y, mean_y, geo)
-    tpos = torch.arange(geo.f0_length, dtype=x.dtype,
-                        device=x.device) * (geo.grid_ms / 1000.0)
-    cand, _, _ = candidates_stage(y, mean_y, geo)
+    tpos = torch.arange(geo_k.f0_length, dtype=x.dtype,
+                        device=x.device) * (geo_k.grid_ms / 1000.0)
+    cand, _, _ = candidates_stage(y, mean_y, geo_k)
     cand, score = _refine.refine_stage(
-        y - mean_y[:, None], cand, tpos, geo=geo,
+        y - mean_y[:, None], cand, tpos, geo=geo_k,
         dedup_tol=REFINE_DEDUP_TOL)
     # refined candidates are compacted into the first CAP slots and the
     # rest are zero; a zero neighbour gives relative error exactly 1.0,
@@ -530,18 +571,20 @@ def harvest_device_stages(x, mean_y, *, geo):
         return Fn.pad(c, (0, S - w)), Fn.pad(s, (0, S - w))
 
 
-def harvest_device_full(x, mean_y, *, geo, n_out):
+def harvest_device_full(x, mean_y, *, geo, n_out, grid=1):
     """Full Harvest wav -> F0 at frame_period: x [B, T] -> [B, n_out].
-    float32 runs the device contour chain with the mean ``mean_y`` [B];
-    float64 takes ``harvest_parity`` (its own int-truncated mean, the host
-    contour)."""
+    float32 runs the stages and the device contour chain on the ``grid``
+    ms candidate grid with the mean ``mean_y`` [B]; float64 takes
+    ``harvest_parity`` (its own int-truncated mean, the host contour, the
+    1 ms grid)."""
+    check_grid(x.dtype, grid)
     if x.dtype == torch.float64:
         return harvest_parity(x, geo=geo)
     from worldtpu_torch.analysis import contour_device as CDV
-    cand, score = harvest_device_stages(x, mean_y, geo=geo)
+    cand, score = harvest_device_stages(x, mean_y, geo=geo, grid=grid)
     with record_function("wt.contour"):
         return CDV.fix_and_smooth(cand, score, n_out, geo.frame_period,
-                                  grid_ms=geo.grid_ms)
+                                  grid_ms=grid)
 
 
 def int_trunc_mean(y):
@@ -555,17 +598,19 @@ def int_trunc_mean(y):
                         dtype=y.dtype, device=y.device)
 
 
-def host_contour(cand, score, geo):
+def host_contour(cand, score, geo, grid=1):
     """The reference's contour fixing and smoothing of one utterance's
-    [F, S] candidates and scores (float64 numpy, ``analysis.contour``) and
-    the pick of the 1 ms grid at the frame period -> f0 [n_out] numpy."""
+    [F, S] candidates and scores on the ``grid`` ms candidate grid (float64
+    numpy, ``analysis.contour``) and the nearest-frame pick of that grid at
+    the frame period -> f0 [n_out] numpy."""
     from worldtpu_torch.analysis import contour
-    best = contour.fix_f0_contour(cand, score)
+    best = contour.fix_f0_contour(cand, score, grid_ms=grid)
     f0_grid = contour.smooth_f0_contour(best)
     tpos = np.arange(geo.n_grid()) * geo.frame_period / 1000.0
-    x = tpos * 1000.0           # frame times in ms, rounded half away from 0
+    x = tpos * (1000.0 / grid)  # grid frames, rounded half away from 0
     pick = np.where(x > 0, np.floor(x + 0.5), np.ceil(x - 0.5))
-    return f0_grid[np.minimum(geo.f0_length - 1, pick.astype(np.int64))]
+    return f0_grid[np.minimum(geo.with_grid(grid).f0_length - 1,
+                              pick.astype(np.int64))]
 
 
 def harvest_parity(x, *, geo):
@@ -585,12 +630,14 @@ class ZcCapacityError(RuntimeError):
     candidates are wrong.  See ``ops.zc_kernel.event_overflows``."""
 
 
-def zc_capacity_violations_batch(x, *, geo):
+def zc_capacity_violations_batch(x, *, geo, grid=1):
     """[B] counts of the (band, crossing type) pairs of each utterance of
     x [B, T] whose events overflow the zc kernel's event buffer: the
-    decimation, the filter bank and dense mask reductions."""
+    decimation, the filter bank and dense mask reductions (the buffer,
+    e_max, is the same on every candidate grid)."""
+    geo_k = geo.with_grid(grid)
     y = decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
-    return _zc.event_overflows(band_filter(y, geo), geo)
+    return _zc.event_overflows(band_filter(y, geo_k), geo_k)
 
 
 def check_dtype(dtype):
@@ -632,23 +679,32 @@ class HarvestKernel(torch.nn.Module):
     instead, since the dense chain's section layout grows as F^2.  float64
     is the parity path (``harvest_parity``), on the card too: the
     reference's literal stages there, its int-truncated mean and contour on
-    the host."""
+    the host.
+
+    ``grid_ms`` (default 1, the reference's grid) is the float32 path's
+    candidate-grid period: k > 1 runs every per-frame stage and the contour
+    on a k ms grid (``worldtpu``'s ``WORLDTPU_GRID_MS``, a fast mode that
+    loses voicing-boundary resolution).  float64 with k > 1 raises
+    ValueError."""
 
     def __init__(self, fs, x_length, f0_floor=C.FLOOR_F0, f0_ceil=C.CEIL_F0,
                  frame_period=5.0, target_fs=8000.0, channels_in_octave=40.0,
-                 device=None):
+                 device=None, grid_ms=1):
         super().__init__()
+        check_grid(torch.float32, grid_ms)
         self.geo = HarvestGeometry(
             fs, x_length, f0_floor=f0_floor, f0_ceil=f0_ceil,
             frame_period=frame_period, target_fs=target_fs,
             channels_in_octave=channels_in_octave)
+        self.grid_ms = grid_ms
         self.device = None if device is None else torch.device(device)
 
     def forward(self, x):
         """x [B, x_length] -> (f0 [B, n_out], tpos [n_out]), in x's dtype."""
         n_out = self.geo.n_grid()
         mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-        f0 = harvest_device_full(x, mean, geo=self.geo, n_out=n_out)
+        f0 = harvest_device_full(x, mean, geo=self.geo, n_out=n_out,
+                                 grid=self.grid_ms)
         tpos = torch.arange(n_out, dtype=x.dtype, device=x.device) \
             * (self.geo.frame_period / 1000.0)
         return f0, tpos
@@ -689,12 +745,14 @@ class HarvestKernel(torch.nn.Module):
         HOST_CONTOUR_FRAMES), so no caller can send a batch on the card
         through the host by hand."""
         check_dtype(dtype)
+        check_grid(dtype, self.grid_ms)
         x = as_tensor(x_batch, self.device, dtype)
         if dtype == torch.float64:
             return self._parity(x)
         if check_capacity:
             with torch.no_grad():
-                v = zc_capacity_violations_batch(x, geo=self.geo).cpu()
+                v = zc_capacity_violations_batch(
+                    x, geo=self.geo, grid=self.grid_ms).cpu()
             if bool(v.any()):
                 bad = torch.nonzero(v)[:, 0].tolist()
                 raise ZcCapacityError(
@@ -723,6 +781,7 @@ class HarvestKernel(torch.nn.Module):
         a time, as ``compute_batch`` does.  ``chunk`` and ``contour_on``
         are absent, as in ``compute_batch``."""
         check_dtype(dtype)
+        check_grid(dtype, self.grid_ms)
         pending = None
         for xb in batches:
             x = as_tensor(xb, self.device, dtype)
@@ -751,9 +810,10 @@ class HarvestKernel(torch.nn.Module):
                 mean = torch.zeros(x.shape[0], dtype=x.dtype)
                 cand, score = (
                     _narrow(t, transfer_dtype).to(torch.float64).numpy()
-                    for t in harvest_device_stages(x, mean, geo=self.geo))
-                return lambda: [(host_contour(c, s, self.geo), tpos)
-                                for c, s in zip(cand, score)]
+                    for t in harvest_device_stages(x, mean, geo=self.geo,
+                                                   grid=self.grid_ms))
+                return lambda: [(host_contour(c, s, self.geo, self.grid_ms),
+                                 tpos) for c, s in zip(cand, score)]
             f0, _ = self(x)
         done = None
         if x.device.type != "cpu":

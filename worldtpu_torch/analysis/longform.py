@@ -11,7 +11,10 @@ chunk boundaries, and the host contour (``analysis.contour``) runs once
 over the whole recording.  Every stage has finite temporal support
 (decimation IIR decay, filter taps, zero-crossing intervals <= 1/f0_floor,
 refine windows <= 3/f0_floor, +-1 frame pruning), so a ~1 s halo
-reproduces interior frames to float32 noise.
+reproduces interior frames to float32 noise.  float64 runs the parity
+path's stages (``harvest._stages_f64``: the circular-FFT band filter, dense
+zero crossings, the dense refine; no kernel) on each batch of windows with
+mean 0, as ``worldtpu``'s float64 LongHarvest does.
 
 Chunk boundaries sit on a grid where the sample index and the decimation
 grid align (u ms with fs*u/1000 an integer divisible by the decimation
@@ -27,18 +30,16 @@ import torch
 from worldtpu_torch import constants as C
 from worldtpu_torch.analysis import contour
 from worldtpu_torch.analysis.harvest import (
-    HarvestGeometry, as_tensor, harvest_device_stages)
+    HarvestGeometry, as_tensor, check_dtype, harvest_device_stages)
 
-#: the ROADMAP item that ports the float64 long-audio path
-F64_ITEM = "ROADMAP.md Queue 1, float64 long audio"
-
-
-def check_float32(dtype):
-    """Raise ValueError unless dtype is torch.float32: the long-audio path
-    is float32 in this package."""
-    if dtype != torch.float32:
-        raise ValueError(f"long audio runs in torch.float32 only, not "
-                         f"{dtype}; float64 is still to port ({F64_ITEM})")
+#: windows per batch of device stages, by dtype.  float32: 16 windows of
+#: 10 s at 22.05 kHz peak at 9-12 GiB on an H100 (PERF.md, section 5).
+#: float64: one such window takes 2.43 GiB on an H100 (the float64 pruning
+#: compares every pair of the 126 slots of its 10,001 frames) and a batch
+#: grows linearly with its windows, so 4 (9.72 GiB) stay near the float32
+#: batch's peak; the float64 refine loops over the windows one by one, so
+#: a larger batch would save little time
+MAX_BATCH = {torch.float32: 16, torch.float64: 4}
 
 
 def _grid_unit_ms(fs, ratio):
@@ -85,12 +86,17 @@ class LongHarvest:
     def n_chunks(self, n):
         return max(1, -(-n // self.stride))
 
-    def compute(self, x, dtype=torch.float32, max_batch=16):
-        """F0 for one long utterance x [n] (numpy or tensor).  Returns
+    def compute(self, x, dtype=torch.float32, max_batch=None):
+        """F0 for one long utterance x [n] (numpy or tensor) in ``dtype``
+        (float32, or float64: the parity path's stages).  Returns
         (f0 [n_out], tpos [n_out]) as float64 numpy, with
-        n_out = 1 + 1000*n/fs/frame_period, like HarvestKernel.compute."""
+        n_out = 1 + 1000*n/fs/frame_period, like HarvestKernel.compute.
+        ``max_batch``: windows per batch of device stages (default
+        MAX_BATCH of the dtype)."""
         n = int(x.shape[0])
-        cand, score = self._candidates(x, dtype, max_batch)
+        check_dtype(dtype)
+        cand, score = self._candidates(x, dtype,
+                                       max_batch or MAX_BATCH[dtype])
         return self._contour(cand, score, n)
 
     def _windows(self, x, dtype):
@@ -115,7 +121,6 @@ class LongHarvest:
         enqueued before batch k's download is waited on; on the card each
         batch goes to pinned memory by a non-blocking copy behind an
         event."""
-        check_float32(dtype)
         xp, starts = self._windows(x, dtype)
         g = self.geo
         n_chunks = len(starts)

@@ -17,7 +17,13 @@ Differences from the JAX facades:
     kernels).  ``CheapTrick.compute`` and ``D4C.compute`` pass the
     reference's randn() dithers (``analysis.dither``) through to it;
   - ``CheapTrick``, ``D4C`` and ``Synthesis`` return tensors on the device;
-    ``Harvest`` and ``World`` return numpy arrays, as in JAX.
+    ``Harvest`` and ``World`` return numpy arrays, as in JAX;
+  - ``Harvest`` and ``World`` take ``grid_ms``, Harvest's candidate-grid
+    period (default 1, the reference's), where ``worldtpu`` reads the
+    ``WORLDTPU_GRID_MS`` environment knob: k > 1 is the float32 fast mode
+    (every per-frame stage on 1/k of the frames); float64 with k > 1
+    raises ValueError.  It is a keyword of the facade, not a field of
+    ``HarvestOption``, which mirrors the reference's struct.
 """
 
 from __future__ import annotations
@@ -76,12 +82,14 @@ class Harvest:
     """F0 estimation (reference include/harvest.hpp)."""
 
     def __init__(self, fs: int, option: Optional[HarvestOption] = None, *,
-                 device):
+                 device, grid_ms: int = 1):
         self.fs = fs
         self.option = option or HarvestOption()
         if self.option.use_cos_table:
             raise ValueError("use_cos_table=True is not supported by the "
                              "port (its refine window is computed)")
+        _harvest.check_grid(torch.float32, grid_ms)
+        self.grid_ms = grid_ms
         self.device = torch.device(device)
         self._kernels = {}
 
@@ -97,7 +105,8 @@ class Harvest:
             self._kernels[x_length] = _harvest.HarvestKernel(
                 self.fs, x_length, f0_floor=o.f0_floor, f0_ceil=o.f0_ceil,
                 frame_period=o.frame_period, target_fs=o.target_fs,
-                channels_in_octave=o.channels_in_octave, device=self.device)
+                channels_in_octave=o.channels_in_octave, device=self.device,
+                grid_ms=self.grid_ms)
         return self._kernels[x_length]
 
     def compute(self, x, dtype=torch.float32):
@@ -240,11 +249,12 @@ class Synthesis:
 class World:
     """The reference demo's workflow (Harvest -> CheapTrick -> D4C
     [-> Synthesis]) as one batched call per utterance (parallel.batch); in
-    float32 F0 never leaves the device."""
+    float32 F0 never leaves the device.  ``grid_ms``: Harvest's
+    candidate-grid period (see ``Harvest``)."""
 
     def __init__(self, fs: int, *, frame_period: float = 5.0,
                  f0_floor: float = C.FLOOR_F0, f0_ceil: float = C.CEIL_F0,
-                 device):
+                 device, grid_ms: int = 1):
         self.fs = fs
         self.frame_period = frame_period
         self.f0_floor = f0_floor
@@ -256,7 +266,8 @@ class World:
         self.fft_size = self._cheaptrick.fft_size
         self._harvest = Harvest(fs, HarvestOption(
             f0_floor=f0_floor, f0_ceil=f0_ceil, frame_period=frame_period),
-            device=device)
+            device=device, grid_ms=grid_ms)
+        self.grid_ms = grid_ms
 
     def analyze(self, x, pitch_scale: float = 1.0, dtype=torch.float32):
         """wav -> (temporal_positions, f0, spectrogram, aperiodicity) as
@@ -268,7 +279,7 @@ class World:
             _harvest.as_tensor(x, self.device, dtype)[None], geo=hk.geo,
             fs=self.fs,
             fft_size=self.fft_size, max_half_window=ck.max_half_window,
-            pitch_scale=pitch_scale)
+            pitch_scale=pitch_scale, grid_ms=self.grid_ms)
         tpos = np.arange(f0.shape[1]) * (self.frame_period / 1000.0)
         return (tpos, f0[0].cpu().numpy(), spec[0].cpu().numpy(),
                 ap[0].cpu().numpy())
@@ -299,7 +310,8 @@ class World:
                 xb, noise, geo=hk.geo, fs=self.fs, fft_size=self.fft_size,
                 max_half_window=ck.max_half_window, frame_period_s=fp_s,
                 out_length=out_length, max_pulses=mp,
-                pitch_scale=pitch_scale, return_overflow=True)
+                pitch_scale=pitch_scale, return_overflow=True,
+                grid_ms=self.grid_ms)
             if not bool(ovf[0]):
                 return y[0].cpu().numpy(), f0[0].cpu().numpy()
             if mp >= hard:

@@ -9,6 +9,10 @@ wav, with byte-compatible parameter files), with ``--device`` in place of
     python -m worldtpu_torch.cli analyze in.wav prefix [--f32]
     python -m worldtpu_torch.cli synthesize prefix out.wav [--f32]
 
+``--grid-ms K`` (float32 only, with ``--f32`` or ``--fused``) runs Harvest
+on a K ms candidate grid, the fast mode ``worldtpu`` reads from the
+``WORLDTPU_GRID_MS`` environment variable.
+
 ``--device`` is ``cuda`` by default and the CLI raises when no CUDA device
 is present rather than running on the CPU; ``--device cpu`` runs the plain
 PyTorch versions of the kernels.  As in ``worldtpu.cli``, the compute is
@@ -54,14 +58,14 @@ class _Run:
         return out
 
 
-def _analyze(run, x, fs, frame_period, f0_floor, dtype):
+def _analyze(run, x, fs, frame_period, f0_floor, dtype, grid_ms=1):
     from worldtpu_torch import api
 
     print("\nF0 estimation (Harvest)")
     t0 = time.perf_counter()
     harvest = api.Harvest(fs, api.HarvestOption(frame_period=frame_period,
                                                 f0_floor=f0_floor),
-                          device=run.device)
+                          device=run.device, grid_ms=grid_ms)
     harvest._kernel(len(x))
     print(f"\t initialize:\t{(time.perf_counter() - t0) * 1000:.3f} [msec]")
     tpos, f0 = run.timed("compute", harvest.compute, x, dtype=dtype,
@@ -125,7 +129,8 @@ def _run_fused(run, args, x, fs, profile_region):
     from worldtpu_torch.io import params, wav
 
     world = api.World(fs, frame_period=args.frame_period,
-                      f0_floor=args.f0_floor, device=run.device)
+                      f0_floor=args.f0_floor, device=run.device,
+                      grid_ms=args.grid_ms)
     t0 = time.perf_counter()
     with profile_region():
         if args.command == "analyze" or args.formant_scale != 1.0:
@@ -173,6 +178,10 @@ def _parser():
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="compute device (default cuda; raises without a "
                         "CUDA device)")
+    p.add_argument("--grid-ms", type=int, default=1, metavar="K",
+                   help="Harvest's candidate-grid period in ms (default 1, "
+                        "the reference's; K > 1 is the float32 fast mode "
+                        "and needs --f32 or --fused)")
     p.add_argument("--seed", type=int, default=0,
                    help="synthesis noise seed (torch.Generator)")
     p.add_argument("--metrics-json", default=None,
@@ -190,12 +199,18 @@ def _parser():
 
 
 def main(argv=None):
-    args = _parser().parse_args(argv)
+    parser = _parser()
+    args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
     device = torch.device(args.device)
     dtype = torch.float32 if args.f32 else torch.float64
+    from worldtpu_torch.analysis.harvest import check_grid
+    try:
+        check_grid(torch.float32 if args.fused else dtype, args.grid_ms)
+    except ValueError as e:
+        parser.error(f"--grid-ms: {e}")
 
     from worldtpu_torch.io import params, wav
 
@@ -232,7 +247,8 @@ def main(argv=None):
             return _run_fused(run, args, x, fs, profile_region)
         with profile_region():
             tpos, f0, spec, ap, fft_size = _analyze(
-                run, x, fs, args.frame_period, args.f0_floor, dtype)
+                run, x, fs, args.frame_period, args.f0_floor, dtype,
+                args.grid_ms)
             if args.command == "copy-syn":
                 f0, spec = _modify(run, f0, spec, fs, fft_size,
                                    args.f0_scale, args.formant_scale, dtype)

@@ -1,10 +1,10 @@
 """Full long-audio pipeline: wav -> wav in bounded device memory for
 arbitrarily long single utterances.
 
-Port of worldtpu/longaudio.py, float32, on one device.  The batched
-programs materialize [F, K] slabs and a [max_pulses, fft_size] response
-slab per utterance: fine for utterances, fatal for a 10-minute recording.
-This module composes chunked pieces instead:
+Port of worldtpu/longaudio.py, float32 and float64, on one device.  The
+batched programs materialize [F, K] slabs and a [max_pulses, fft_size]
+response slab per utterance: fine for utterances, fatal for a 10-minute
+recording.  This module composes chunked pieces instead:
 
   - F0: analysis.longform.LongHarvest (overlap-save chunked Harvest, one
     host contour).
@@ -12,13 +12,13 @@ This module composes chunked pieces instead:
     reads an audio slice with a halo covering the widest analysis window,
     so interior frames see the samples the unchunked analysis sees, and
     takes the recording's own frame times with the slice's first sample:
-    window origins are rounded on the unchunked path's float32 times, then
-    read from the slice, and the recording is padded with its edge values
+    window origins are rounded on the unchunked path's frame times (in
+    the dtype), then read from the slice, and the recording is padded with its edge values
     as the unchunked analysis pads it, so every frame is the unchunked
     analysis' frame.  (worldtpu passes block-local times and pads with
-    zeros: in float32 the local times round a window origin to another
-    sample than the unchunked path does at frames that fall on half
-    samples, a quarter of the frames at 22.05 kHz, and the first and last
+    zeros: the local times can round a window origin to another sample
+    than the unchunked path does at frames that fall on half samples, a
+    quarter of the frames at 22.05 kHz in float32, and the first and last
     frames read zeros.)
   - Synthesis: output chunked on the sample axis.  The Q32 phase
     accumulator is carried across chunks (the unchunked cumulative sum's
@@ -27,14 +27,21 @@ This module composes chunked pieces instead:
     responses are overlap-added (the OLA kernel on the card) into a local
     buffer of chunk + fft_size samples, and the host accumulates the
     buffers.  Noise is counter-based per GLOBAL pulse ordinal
-    (synthesis.noise.indexed_noise), so the waveform does not depend on the
-    chunk size.
+    (synthesis.noise.indexed_noise), so in float32 the waveform does not
+    depend on the chunk size (in float64 the block-local times can move a
+    knife-edge pulse with it, as in worldtpu).
 
 The chunked time base evaluates the unchunked one's formula
 (synthesis._time_base, float32) on global sample indices: the same global
 times, the same global knot lookup, the same extrapolated last knot (and
 its voicing twin), so its pulses are the unchunked pulses, sample for
-sample.  The sequential mode keeps the carried phase and pulse ordinal on
+sample.  float64 (``dtype=torch.float64``) follows ``worldtpu``'s float64
+chunk step: block-local times and interp1 over the block's knots, then the
+same Q32 step and carried phase as float32 (not the unchunked float64
+synthesis' sequential double sum, so a knife-edge pulse can fall apart
+from the unchunked float64 path's, in ``worldtpu`` as here); the analysis
+is the parity path's CheapTrick and D4C on each block, the noise JAX's
+float64 rows, the overlap-add the OLA kernel's ``double`` instantiation.  The sequential mode keeps the carried phase and pulse ordinal on
 the device and never waits for the host inside its loop: chunk k+1 is
 enqueued before chunk k's buffer, copied to pinned memory behind an event,
 is landed; the overflow flags are read once, at the end.
@@ -56,8 +63,9 @@ from worldtpu_torch.analysis.cheaptrick import (CheapTrickKernel,
                                                 cheaptrick_frames)
 from worldtpu_torch.analysis.d4c import (d4c_frames, d4c_max_half_c,
                                          d4c_max_half_lt)
-from worldtpu_torch.analysis.harvest import as_tensor
-from worldtpu_torch.analysis.longform import LongHarvest, check_float32
+from worldtpu_torch.analysis.harvest import as_tensor, check_dtype
+from worldtpu_torch.analysis.longform import LongHarvest
+from worldtpu_torch.ops.interp import interp1
 from worldtpu_torch.ops.ola_kernel import overlap_add
 from worldtpu_torch.synthesis import noise as N
 from worldtpu_torch.synthesis import synthesis as S
@@ -98,8 +106,9 @@ class _Plan:
     a0: list             # first audio sample of each block slice (host)
     x_dev: torch.Tensor      # [halo + ...] the input, edge-padded
     f0_dev: torch.Tensor     # [F_total + Fb] F0, edge-padded (analysis)
-    cf0_dev: torch.Tensor    # [F_total + 1] time-base knots (+ extrapolated)
-    cvuv_dev: torch.Tensor   # [F_total + 1] their voicing (+ extrapolated)
+    cf0_dev: torch.Tensor    # [F_total + Fb + 1] time-base knots (+
+    #                          extrapolated, then edge-padded)
+    cvuv_dev: torch.Tensor   # [F_total + Fb + 1] their voicing (likewise)
     o0_dev: torch.Tensor     # [n_chunks] int64 first output sample
     flo_dev: torch.Tensor    # [n_chunks] int64 flo on the device
     a0_dev: torch.Tensor     # [n_chunks] int64 a0 on the device
@@ -133,32 +142,36 @@ def _plan(x, f0_np, *, fs, fft, max_half_window, halo, fp_a, fp_s,
     # block of chunk k: frames [flo, flo + Fb) cover the time base of its
     # pulses in [o0, o0 + L + slack) and the analysis frames of those
     # times; its audio slice starts halo samples before the first frame.
-    # Its frame times are the recording's, float32 as the unchunked
+    # Its frame times are the recording's, in the dtype, as the unchunked
     # analysis computes them (arange * frame period)
     flo, a0, tpos = [], [], []
-    f32 = np.float32
+    ft = np.float64 if dtype == torch.float64 else np.float32
     for k in range(n_chunks):
         fl = min(max(int(k * L / (fs * fp_s)) - 2, 0), F_pad - Fb)
-        t0_blk = f32(fl) * f32(fp_a)
+        t0_blk = ft(fl) * ft(fp_a)
         flo.append(fl)
-        a0.append(int(np.floor(t0_blk * f32(fs))) - halo)
-        tpos.append(np.arange(fl, fl + Fb).astype(f32) * f32(fp_a))
+        a0.append(int(np.floor(t0_blk * ft(fs))) - halo)
+        tpos.append(np.arange(fl, fl + Fb).astype(ft) * ft(fp_a))
 
     # the input with `halo` samples before it and the rest after it, edge
     # values (the unchunked analysis replicates the edge samples)
     xd = as_tensor(x, device, dtype)
     x_dev = torch.cat([xd[:1].expand(halo), xd,
                        xd[-1:].expand(max(need, T + halo) - T)])
-    f0 = torch.as_tensor(f0_np.astype(np.float32), device=device)
+    f0 = torch.as_tensor(f0_np.astype(ft), device=device)
     f0_dev = torch.cat([f0, f0[-1:].expand(F_pad - F_total)])
     # the time base's knots, as synthesis._time_base builds them: the
-    # unvoiced floor, then the extrapolated knot and its voicing twin
+    # unvoiced floor, then the extrapolated knot and its voicing twin,
+    # edge-padded so every block's Fb + 1 knots exist (float64 reads a
+    # block's; float32 reads no knot past the extrapolated one)
     lowest_f0 = fs / fft + 1.0
     cf0 = torch.where(f0 < lowest_f0, torch.zeros((), dtype=dtype,
                                                   device=device), f0)
     cvuv = (cf0 != 0.0).to(dtype)
     cf0 = torch.cat([cf0, cf0[-1:] * 2 - cf0[-2:-1]])
     cvuv = torch.cat([cvuv, cvuv[-1:] * 2 - cvuv[-2:-1]])
+    cf0 = torch.cat([cf0, cf0[-1:].expand(Fb)])
+    cvuv = torch.cat([cvuv, cvuv[-1:].expand(Fb)])
     o0_dev = torch.arange(n_chunks, dtype=torch.int64, device=device) * L
     flo_dev, a0_dev = (torch.as_tensor(np.asarray(v, np.int64),
                                        device=device) for v in (flo, a0))
@@ -174,23 +187,35 @@ def _plan(x, f0_np, *, fs, fft, max_half_window, halo, fp_a, fp_s,
 def _timebase_core(p, k0, k1, carry):
     """Q32 pulse detection for chunks k0..k1-1 as rows (reference
     :180-288 with carried phase), carry [G] int64: the phase bits at the
-    sample before each chunk.  The unchunked _time_base's float32 formula
-    on GLOBAL sample indices: global times, the global knot lookup and the
-    appended knot, so the pulses are the unchunked ones."""
+    sample before each chunk.  float32: the unchunked _time_base's formula
+    on GLOBAL sample indices (global times, the global knot lookup and the
+    appended knot), so the pulses are the unchunked ones.  float64:
+    ``worldtpu``'s float64 chunk step, block-local times and interp1 over
+    the block's Fb + 1 knots."""
     dt = p.cf0_dev.dtype
     dev = carry.device
     n = p.L + p.slack
     G = k1 - k0
     o0 = p.o0_dev[k0:k1]
     s = torch.arange(n, device=dev)
-    t = (o0[:, None] + s).to(dt) / p.fs
-    k = torch.clamp((t / p.fp_s).to(torch.int32) + 1, 1, p.F_total).long()
-    x0 = k.to(dt) * p.fp_s - p.fp_s
-    sf = (t - x0) / p.fp_s
-    f0_lo, f0_hi = p.cf0_dev[k - 1], p.cf0_dev[k]
-    v_lo, v_hi = p.cvuv_dev[k - 1], p.cvuv_dev[k]
-    f0i = f0_lo + sf * (f0_hi - f0_lo)
-    vuvi = v_lo + sf * (v_hi - v_lo)
+    if dt == torch.float64:
+        flo = p.flo_dev[k0:k1, None]
+        knots = flo + torch.arange(p.Fb + 1, device=dev)       # [G, Fb+1]
+        coarse_t = (torch.arange(p.Fb + 1, dtype=dt, device=dev)
+                    * p.fp_s).expand(G, -1)
+        t_loc = (o0[:, None] + s).to(dt) / p.fs - flo.to(dt) * p.fp_s
+        f0i = interp1(coarse_t, p.cf0_dev[knots], t_loc)
+        vuvi = interp1(coarse_t, p.cvuv_dev[knots], t_loc)
+    else:
+        t = (o0[:, None] + s).to(dt) / p.fs
+        k = torch.clamp((t / p.fp_s).to(torch.int32) + 1, 1,
+                        p.F_total).long()
+        x0 = k.to(dt) * p.fp_s - p.fp_s
+        sf = (t - x0) / p.fp_s
+        f0_lo, f0_hi = p.cf0_dev[k - 1], p.cf0_dev[k]
+        v_lo, v_hi = p.cvuv_dev[k - 1], p.cvuv_dev[k]
+        f0i = f0_lo + sf * (f0_hi - f0_lo)
+        vuvi = v_lo + sf * (v_hi - v_lo)
     vuvi = (vuvi > 0.5).to(dt)
     f0i = torch.where(vuvi == 0.0, torch.full((), C.DEFAULT_F0, dtype=dt,
                                               device=dev), f0i)
@@ -293,7 +318,7 @@ def _chunk_step(p, k0, k1, carry, ord0, key):
     spec, ap = _analysis(p, k0, k1)
 
     pul = _pulse_table(p, k0, k1, carry)
-    noise = N.indexed_noise(key, ord0, p.Pmax, fft)
+    noise = N.indexed_noise(key, ord0, p.Pmax, fft, dtype=spec.dtype)
     resp = S.pulse_responses(pul["pt"], pul["shift"], pul["ns"],
                              pul["vuv_at"], pul["own"], spec, ap, noise,
                              fs=fs, fft_size=fft,
@@ -324,8 +349,8 @@ class LongPipeline:
         device: where everything runs ("cuda", "cpu" or a torch.device).
 
     Against worldtpu's class: the noise key is ``seed`` (an int, the key
-    of JAX's PRNGKey(seed), or two uint32 words), float32 only, and no
-    ``mesh`` (one device).
+    of JAX's PRNGKey(seed), or two uint32 words), and no ``mesh`` (one
+    device).
     """
 
     def __init__(self, fs, *, frame_period=5.0, chunk_frames=1000,
@@ -358,8 +383,9 @@ class LongPipeline:
     def copy_synthesis(self, x, *, seed=0, pitch_scale=1.0,
                        duration_scale=1.0, dtype=torch.float32,
                        on_overflow="raise", parallel=False):
-        """wav -> wav.  Returns (y [out_length], f0 [n_frames]) as numpy,
-        y in x's dtype.
+        """wav -> wav in ``dtype`` (float32, or float64: the parity path's
+        stages and analysis, JAX's float64 noise rows).  Returns
+        (y [out_length], f0 [n_frames]) as numpy, y in x's dtype.
 
         ``duration_scale`` stretches the synthesis frame period.
         ``on_overflow``: 'raise' or 'warn' when a chunk's pulse bound is
@@ -373,7 +399,7 @@ class LongPipeline:
         of batched calls, PARALLEL_GROUP chunks at a time (one OLA launch
         per group).  The pulses are those of the sequential mode by
         construction (the prescan reuses _timebase_core)."""
-        check_float32(dtype)
+        check_dtype(dtype)
         key = N.as_key(seed)
         out_dtype = (torch.empty((), dtype=x.dtype).numpy().dtype
                      if isinstance(x, torch.Tensor) else np.asarray(x).dtype)

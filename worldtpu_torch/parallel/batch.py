@@ -48,16 +48,17 @@ def batch_copy_synthesis(x, f0, tpos, noise, *, fs, fft_size,
 @torch.no_grad()
 def batch_wav_to_wav(x, noise, *, geo, fs, fft_size, max_half_window,
                      frame_period_s, out_length, max_pulses, pitch_scale=1.0,
-                     return_overflow=False):
+                     return_overflow=False, grid_ms=1):
     """The main path: [B, T] wavs -> Harvest F0 (float32: with the device
     contour chain) -> pitch scaling -> CheapTrick + D4C -> synthesis ->
     [B, out_length] wavs.  Duration modification is the synthesis
-    frame_period_s.
+    frame_period_s.  ``grid_ms`` is Harvest's candidate-grid period
+    (float32; ``analysis.harvest.HarvestKernel``).
 
     Returns (y, f0 [B, n_grid]), plus a [B] bool of pulse-bound overflows
     with ``return_overflow`` (size max_pulses with
     synthesis.capacity_max_pulses and check it)."""
-    f0, tpos = _scaled_f0(x, geo, pitch_scale)
+    f0, tpos = _scaled_f0(x, geo, pitch_scale, grid_ms)
     y, _, _, ovf = batch_copy_synthesis(
         x, f0, tpos, noise, fs=fs, fft_size=fft_size,
         max_half_window=max_half_window, frame_period_s=frame_period_s,
@@ -66,22 +67,25 @@ def batch_wav_to_wav(x, noise, *, geo, fs, fft_size, max_half_window,
 
 
 @torch.no_grad()
-def batch_analyze(x, *, geo, fs, fft_size, max_half_window, pitch_scale=1.0):
+def batch_analyze(x, *, geo, fs, fft_size, max_half_window, pitch_scale=1.0,
+                  grid_ms=1):
     """Analysis in one call: [B, T] wavs -> (f0 [B, n_grid], spec
     [B, n_grid, K], ap [B, n_grid, K]) — Harvest (with the device contour
-    chain), pitch scaling, CheapTrick and D4C on the scaled F0."""
-    f0, tpos = _scaled_f0(x, geo, pitch_scale)
+    chain, on the ``grid_ms`` candidate grid), pitch scaling, CheapTrick and
+    D4C on the scaled F0."""
+    f0, tpos = _scaled_f0(x, geo, pitch_scale, grid_ms)
     spec, ap = _analysis(x, f0, tpos, fs=fs, fft_size=fft_size,
                          max_half_window=max_half_window)
     return f0, spec, ap
 
 
-def _scaled_f0(x, geo, pitch_scale):
-    """Harvest F0 [B, n_grid] of x [B, T] times pitch_scale, and the frame
-    times [n_grid]."""
+def _scaled_f0(x, geo, pitch_scale, grid_ms):
+    """Harvest F0 [B, n_grid] of x [B, T] on the grid_ms candidate grid
+    times pitch_scale, and the frame times [n_grid]."""
     n_grid = geo.n_grid()
     mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-    f0 = _hv.harvest_device_full(x, mean, geo=geo, n_out=n_grid)
+    f0 = _hv.harvest_device_full(x, mean, geo=geo, n_out=n_grid,
+                                 grid=grid_ms)
     f0 = (f0 * pitch_scale).to(x.dtype)
     tpos = torch.arange(n_grid, dtype=x.dtype, device=x.device) \
         * (geo.frame_period / 1000.0)

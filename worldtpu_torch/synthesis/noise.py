@@ -14,11 +14,16 @@ CPU and the card; no kernel behind it):
     threefry(row key, (0, j)) (JAX's partitionable bit layout);
   - a standard normal is sqrt(2) * erfinv(u) of the uniform u in
     (-1, 1) that JAX builds from those bits, with XLA's float32 erfinv
-    (Giles' polynomials in w = -log1p(-u^2)).
+    (Giles' polynomials in w = -log1p(-u^2));
+  - float64 rows (JAX under x64) take 64 bits a column, the two words of
+    threefry(row key, (0, j)) joined as x0 << 32 | x1, and a uniform from
+    their top 52 bits; the normal is sqrt(2) * ``torch.erfinv(u)``.
 
-The bits and the uniforms equal JAX's exactly; the normals differ from
-``jax.random.normal`` only where log1p or the contraction of the
-polynomial's steps rounds differently (under 1e-6 absolute).
+The bits and the uniforms equal JAX's exactly; the float32 normals differ
+from ``jax.random.normal`` only where log1p or the contraction of the
+polynomial's steps rounds differently (under 1e-6 absolute), the float64
+normals where ``torch.erfinv`` and XLA's float64 erfinv round apart (under
+1e-10 absolute).
 """
 
 from __future__ import annotations
@@ -29,8 +34,12 @@ import torch
 _M32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-# float32 nextafter(-1, 0): the uniform's lower end in jax.random.normal
+# nextafter(-1, 0) in float32 and float64: the uniform's lower end in
+# jax.random.normal
 _LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_LO64 = float(np.nextafter(-1.0, 0.0))
+# the float64 exponent of 1.0, over the 52 mantissa bits
+_ONE64 = 0x3FF0000000000000
 # XLA's float32 erfinv: Giles' coefficients for w < 5 and for w >= 5
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
                -4.39150654e-06, 0.00021858087, -0.00125372503,
@@ -82,14 +91,21 @@ def threefry2x32(key, x0, x1):
     return x0, x1
 
 
+def row_words(key, ords, n):
+    """The two Threefry words (x0, x1) [..., n] (int64 tensors of uint32
+    values) of column j of each global ordinal's row: threefry(fold_in(key,
+    ord), (0, j))."""
+    zero = torch.zeros((), dtype=torch.int64, device=ords.device)
+    f0, f1 = threefry2x32(as_key(key), zero, ords.to(torch.int64) & _M32)
+    j = torch.arange(n, dtype=torch.int64, device=ords.device)
+    return threefry2x32((f0[..., None], f1[..., None]), zero, j)
+
+
 def row_bits(key, ords, n):
     """32 random bits [..., n] (int64 of uint32 values) of each global
     ordinal of ``ords`` (an int64 tensor): jax.random.bits(fold_in(key,
     ord), (n,), uint32)."""
-    zero = torch.zeros((), dtype=torch.int64, device=ords.device)
-    f0, f1 = threefry2x32(as_key(key), zero, ords.to(torch.int64) & _M32)
-    j = torch.arange(n, dtype=torch.int64, device=ords.device)
-    y0, y1 = threefry2x32((f0[..., None], f1[..., None]), zero, j)
+    y0, y1 = row_words(key, ords, n)
     return y0 ^ y1
 
 
@@ -118,15 +134,32 @@ def bits_to_normal(bits):
     return erfinv_f32(u) * float(np.float32(np.sqrt(2.0)))
 
 
+def uniform64(y0, y1):
+    """JAX's float64 uniform in [nextafter(-1, 0), 1) of the 64 random bits
+    x0 << 32 | x1 (int64 tensors of uint32 values): the top 52 bits as the
+    mantissa of a number in [1, 2), less 1, scaled to the interval."""
+    mant = (y0 << 20) | (y1 >> 12)            # < 2**52: no sign to clear
+    f = (mant | _ONE64).view(torch.float64) - 1.0
+    return torch.clamp(f * 2.0 + _LO64, min=_LO64)
+
+
+def bits_to_normal64(y0, y1):
+    """JAX's float64 standard normal of the 64 random bits x0 << 32 | x1:
+    sqrt(2) erfinv of ``uniform64``."""
+    return torch.erfinv(uniform64(y0, y1)) * float(np.sqrt(2.0))
+
+
 def indexed_noise(key, start, count, fft_size, dtype=torch.float32,
                   device=None):
     """Noise rows [..., count, fft_size]: row i is the standard normal row
     of the global pulse ordinal ``start + i`` under ``key`` (a seed or two
-    uint32 words), as ``worldtpu``'s ``indexed_noise`` draws it.
+    uint32 words), as ``worldtpu``'s ``indexed_noise`` draws it in
+    ``dtype`` (float32, or float64 as JAX draws it under x64).
     ``start`` is an int or an int64 tensor of any shape (on the device: no
-    host sync); the leading dimensions follow its shape.  float32 only."""
-    if dtype != torch.float32:
-        raise ValueError(f"indexed_noise draws float32 rows, not {dtype}")
+    host sync); the leading dimensions follow its shape."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"indexed_noise draws float32 or float64 rows, "
+                         f"not {dtype}")
     if isinstance(start, torch.Tensor):
         device = start.device if device is None else torch.device(device)
         start = start.to(device=device, dtype=torch.int64)
@@ -134,4 +167,6 @@ def indexed_noise(key, start, count, fft_size, dtype=torch.float32,
         start = torch.full((), int(start), dtype=torch.int64, device=device)
     ords = start[..., None] + torch.arange(count, dtype=torch.int64,
                                            device=start.device)
+    if dtype == torch.float64:
+        return bits_to_normal64(*row_words(key, ords, fft_size))
     return bits_to_normal(row_bits(key, ords, fft_size))

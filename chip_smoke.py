@@ -136,7 +136,29 @@ Phases (any failure raises, so the exit code is not 0):
      versions, and the first 150 s sequential (wall, realtime factor, the
      float64 kernels' launches, no float32 kernel; peak within the 58.52 s
      run's plus the bytes that grow, plus 5%).  600 s in float64 is left
-     out for the script's time.
+     out for the script's time;
+ 11. the mesh paths (worldtpu_torch.parallel on torch.distributed), on
+     phase 3's batch: (a) an NCCL world of this process alone, mesh
+     (1, 1): batch_wav_to_wav's F0 and y bit-equal to the single-card
+     call, each kernel launched once, its host syncs and wall in turns
+     with the single-card call; (b) four gloo ranks sharing cuda:0
+     (``--mesh-rank``: this script, spawned once; a FileStore; every rank
+     joined within MESH_JOIN_S or the phase fails), each with meshes
+     (2, 2) and (1, 4): Harvest's stages (bit-equal to the single-card
+     stages or not, reported), F0 within 1e-4 Hz with identical voicing
+     and y's 160-sample short-time RMS within 0.02 of the single-card
+     results, each kernel launched once a batch per rank, zc exact and
+     refine within its tolerance at the rank's shard shapes against their
+     plain versions, host syncs, walls per batch in turns with the
+     single-card path run by every rank at once (ranks time-slice one
+     card: the mesh code's overhead, not scaling), peak memory per rank,
+     make_mesh(3, 1) degrading to (4, 1), and float64
+     batch_copy_synthesis on t22 x4 under (2, 2) at rtol 1e-9 and atol
+     1e-12 with the OLA kernel's double instantiation; (c)
+     LongPipeline.copy_synthesis(mesh=(2, 2)) on phase 9's 58.52 s cut
+     (12 chunks, three a rank) against this process's sequential run
+     (every rank's y equal, F0 and pulses identical, windowed q99 < 1e-3
+     and q90 < 0.1) and parallel run (bit-equality reported).
 
 The line before the last is a JSON object {"kernels": [...]}: for each
 kernel its launches in the main path's run (``launches_main``; zc_events,
@@ -148,8 +170,9 @@ what bounds it, the share bound/ms, and the library call's device time
 launches in one pass of phase 8's corpus stream (``launches_corpus``), in
 phase 9's first sequential 600 s run (``launches_long``), in one grid-2
 batch of phase 10(a) (``launches_grid2``) and in phase 10(b)'s float64
-150 s run (``launches_f64_long``); the line above it gives the whole
-script's wall.
+150 s run (``launches_f64_long``), and per gloo rank of phase 11 in one
+(2, 2) batch and its float64 copy-synthesis (``launches_mesh``, a list by
+rank); the line above it gives the whole script's wall.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or outside the repository, the script exits non-zero and prints no
 result.
@@ -426,7 +449,14 @@ def main(argv=None):
                      help="a directory with earlier ola.cu, extend.cu or "
                           "zc_events.cu to time in turns with the current "
                           "kernels")
-    baseline = ap_.parse_args(argv).baseline
+    ap_.add_argument("--mesh-rank", type=int, default=None,
+                     help="internal: run one gloo rank of phase 11")
+    ap_.add_argument("--mesh-dir", type=pathlib.Path, default=None,
+                     help="internal: phase 11's directory of references")
+    args = ap_.parse_args(argv)
+    if args.mesh_rank is not None:
+        return mesh_rank(args.mesh_rank, args.mesh_dir)
+    baseline = args.baseline
     old_sources = [] if baseline is None else [
         f for f in OLD_ENTRIES if (baseline / f).is_file()]
     if baseline is not None and not old_sources:
@@ -1396,6 +1426,12 @@ def main(argv=None):
     for r in results:
         r["launches_grid2"] = grid_counts.get(C_ENTRY[r["name"]], 0)
         r["launches_f64_long"] = f64_counts.get(C_ENTRY[r["name"]], 0)
+
+    # ---- 11. the mesh paths: NCCL world of one, gloo ranks on cuda:0 ----
+    mesh_counts = mesh_phase(torch, dev, card, x, noise, kw, cut["x60"])
+    for r in results:
+        r["launches_mesh"] = mesh_counts.get(C_ENTRY[r["name"]],
+                                             [0] * MESH_RANKS)
 
     jaxy = [m for m in sys.modules
             if m in ("jax", "worldtpu") or m.startswith(("jax.", "worldtpu."))]
@@ -2677,6 +2713,469 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
         raise AssertionError("float64 long audio, bounded memory")
     log(f"phase 10(b) wall: {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+# ---- phase 11 ----
+
+MESH_RANKS = 4            # gloo ranks sharing cuda:0
+MESH_LAYOUTS = ((2, 2), (1, 4))
+MESH_JOIN_S = 420         # every rank exits within this, or the phase fails
+MESH_COLLECTIVE_S = 120   # torch.distributed timeout of a rank's calls
+# the mesh path against the single-card path where a kernel sees other
+# rows or a GEMM other columns (worldtpu's tests/test_parallel.py): F0
+# within 1e-4 Hz with identical voicing (:152-176), 160-sample short-time
+# RMS within 0.02 (:179-216); float64 copy-synthesis at rtol 1e-9, atol
+# 1e-12 (:37-64)
+MESH_F0_ATOL, MESH_RMS_ATOL = 1e-4, 0.02
+MESH_F64_RTOL, MESH_F64_ATOL = 1e-9, 1e-12
+MESH_F64_REPS = 4         # t22 rows of the float64 copy-synthesis case
+
+
+def f64_copy_syn_case(torch, dev):
+    """Phase 11's float64 copy-synthesis inputs (tests/test_parallel.py's
+    case: t22 with its C++ F0, frames padded to a multiple of 2, the same
+    noise row for every utterance) as numpy, and the keywords of
+    batch_copy_synthesis."""
+    from worldtpu_torch.analysis.cheaptrick import CheapTrickKernel
+    from worldtpu_torch.io import params as P_, wav as W_
+    from worldtpu_torch.synthesis import synthesis as S
+    fixd = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures"
+    x22, fs22, _ = W_.wavread(str(fixd / "t22.wav"))
+    f0, _, _ = P_.read_f0(str(fixd / "t22.f0.gz"))
+    F = len(f0)
+    Fp = F + F % 2
+    f0p = np.zeros((MESH_F64_REPS, Fp))
+    f0p[:, :F] = f0
+    ck = CheapTrickKernel(fs22)
+    out = int((Fp - 1) * 0.005 * fs22) + 1
+    mp = S.default_max_pulses(out, fs22)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noise = torch.randn((1, mp, ck.fft_size), generator=gen,
+                        dtype=torch.float64, device=dev)
+    arrays = dict(x=np.tile(np.asarray(x22, np.float64),
+                            (MESH_F64_REPS, 1)),
+                  f0=f0p, tpos=np.arange(Fp) * 0.005,
+                  noise=noise.expand(MESH_F64_REPS, -1, -1).cpu().numpy())
+    kw = dict(fs=fs22, fft_size=ck.fft_size,
+              max_half_window=ck.max_half_window, frame_period_s=0.005,
+              out_length=out, max_pulses=mp)
+    return arrays, kw
+
+
+def f64_excess(got, want):
+    """max over elements of |got - want| - (MESH_F64_ATOL + MESH_F64_RTOL
+    |want|) (> 0: outside the float64 tolerance), and the max relative
+    error."""
+    d = np.abs(got - want)
+    return (float((d - MESH_F64_ATOL - MESH_F64_RTOL * np.abs(want)).max()),
+            float((d / np.maximum(np.abs(want), 1e-300)).max()))
+
+
+def pulse_spy(LA, sink):
+    """Wrap longaudio._pulse_table so that each call appends the global
+    output samples of its owned pulses to ``sink``; returns the original
+    to restore."""
+    real = LA._pulse_table
+
+    def spy(p, k0, k1, carry):
+        pul = real(p, k0, k1, carry)
+        pos = p.o0_dev[k0:k1, None] + pul["idx"]
+        sink.append(pos[pul["own"]].cpu())
+        return pul
+
+    LA._pulse_table = spy
+    return real
+
+
+def mesh_rank(rank, d):
+    """One of phase 11's gloo ranks (``chip_smoke.py --mesh-rank R
+    --mesh-dir D``): the mesh paths on cuda:0, each result held against the
+    single-card references in D; what it measured goes to D/rank{R}.json."""
+    t_rank = time.perf_counter()
+    import torch
+    root = pathlib.Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    from worldtpu_torch import _build, constants as C
+    from worldtpu_torch import longaudio as LA
+    from worldtpu_torch.analysis import harvest as H
+    from worldtpu_torch.analysis.cheaptrick import CheapTrickKernel
+    from worldtpu_torch.ops import refine_kernel, zc_kernel
+    from worldtpu_torch.parallel import batch as PB
+    from worldtpu_torch.parallel import distributed as PD
+    from worldtpu_torch.synthesis import synthesis as S
+    cfg = json.loads((d / "config.json").read_text())
+    ref = {k: np.load(d / f"{k}.npy") for k in cfg["arrays"]}
+    dev = PD.init_distributed(
+        backend="gloo", init_method=f"file://{d / 'store'}",
+        world_size=MESH_RANKS, rank=rank, device="cuda:0",
+        timeout=MESH_COLLECTIVE_S)
+    barrier = torch.distributed.barrier
+    _build.library()
+    torch.cuda.reset_peak_memory_stats()
+    res = dict(rank=rank)
+    x = torch.tensor(ref["x"], device=dev)
+    T = x.shape[1]
+    geo = H.HarvestGeometry(FS, T, f0_floor=40.0)
+    ck = CheapTrickKernel(FS)
+    n_grid = geo.n_grid()
+    out_len = int((n_grid - 1) * 0.005 * DUR * FS) + 1
+    mp = S.capacity_max_pulses(out_len, FS, f0_cap=C.DEFAULT_F0 * PITCH)
+    noise = S.make_noise(torch.Generator(device=dev).manual_seed(0), BATCH,
+                         mp, ck.fft_size, device=dev)
+    if float(noise.double().sum()) != cfg["noise_sum"]:
+        raise AssertionError("the rank's noise is not the main path's")
+    kw = dict(geo=geo, fs=FS, fft_size=ck.fft_size,
+              max_half_window=ck.max_half_window,
+              frame_period_s=0.005 * DUR, out_length=out_len, max_pulses=mp,
+              pitch_scale=PITCH, return_overflow=True)
+    meshes = {lay: PB.make_mesh(*lay) for lay in MESH_LAYOUTS}
+    res["degraded_3x1"] = list(PB.make_mesh(3, 1).shape)
+    zargs = zc_kernel.geometry_args(geo)
+    for lay, mesh in meshes.items():
+        r = res[str(lay)] = dict(coord=mesh.get_coordinate())
+        nd = lay[0]
+        bl = BATCH // nd
+        rows = slice(mesh.get_local_rank("data") * bl,
+                     (mesh.get_local_rank("data") + 1) * bl)
+
+        def call(mesh=mesh):
+            out = PB.batch_wav_to_wav(x, noise, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            return out
+
+        def single():
+            out = PB.batch_wav_to_wav(x, noise, **kw)
+            torch.cuda.synchronize()
+            return out
+
+        barrier()
+        call()                                   # warm-up: first calls
+        barrier()
+        _build.launches.clear()
+        y, f0, ovf = call()
+        r["launches"] = dict(_build.launches)
+        y, f0 = y.to_local().cpu().numpy(), f0.to_local().cpu().numpy()
+        f0_ref = ref["f0"][rows]
+        r["ovf"] = bool(ovf.to_local().any())
+        r["voicing_same"] = bool(np.array_equal(f0 > 0, f0_ref > 0))
+        r["f0_equal"] = bool(np.array_equal(f0, f0_ref))
+        r["f0_max_diff"] = float(np.abs(f0 - f0_ref).max())
+        r["y_equal"] = bool(np.array_equal(y, ref["y"][rows]))
+        r["rms_max_diff"] = float(np.abs(short_time_rms(y) - short_time_rms(
+            ref["y"][rows])).max())
+        r["finite"] = bool(np.isfinite(y).all())
+        # the stages, and the zc and refine launches at this rank's shard
+        # shapes against their plain versions
+        (cand, score), seen = capture(
+            _build, lambda: PB.batch_harvest_device_stages(
+                x, geo=geo, mesh=mesh))
+        torch.cuda.synchronize()
+        cand = cand.to_local().cpu().numpy()
+        score = score.to_local().cpu().numpy()
+        r["stages_equal"] = bool(
+            np.array_equal(cand, ref["cand"][rows])
+            and np.array_equal(score, ref["score"][rows]))
+        r["stages_max_diff"] = float(max(
+            np.abs(cand - ref["cand"][rows]).max(),
+            np.abs(score - ref["score"][rows]).max()))
+        for name, _, a in seen:
+            if name == "wt_zc":
+                filt, bounds, out = a[0], a[1], a[3]
+                zp = zc_kernel.band_candidates_plain(filt, bounds, **zargs)
+                r["zc"] = dict(shape=list(filt.shape),
+                               equal=bool(torch.equal(out, zp)),
+                               nonzero=int((out > 0).sum()))
+            elif name == "wt_refine_sums":
+                seg, delta, hw, gbin, na, out = a[0], a[1], a[2], a[3], \
+                    a[4], a[7]
+                rp = refine_kernel.spectral_sums_plain(
+                    seg, delta, hw, gbin, na, hwmax=geo.max_half_window,
+                    n_fft=geo.refine_fft)
+                r["refine"] = dict(frames=seg.shape[0],
+                                   pairs=int(na.sum()),
+                                   err=float((out - rp).abs().max()),
+                                   scale=float(rp.abs().max()))
+        del seen
+        _, r["syncs"] = count_syncs(torch, lambda: PB.batch_wav_to_wav(
+            x, noise, mesh=mesh, **kw))
+        walls = {"single": [], "mesh": []}
+        for mode in ("single", "mesh", "mesh", "single"):
+            barrier()
+            walls[mode].append(wall_ms(torch, call if mode == "mesh"
+                                       else single, 5))
+        r["walls"] = walls
+
+    # float64 copy-synthesis under (2, 2)
+    m22 = meshes[(2, 2)]
+    arrays, f64kw = f64_copy_syn_case(torch, dev)
+    dl = m22.get_local_rank("data")
+    bl = MESH_F64_REPS // 2
+    xg, f0g, ng = PD.process_local_batch(m22, [
+        arrays[k][dl * bl:(dl + 1) * bl] for k in ("x", "f0", "noise")])
+    barrier()
+    _build.launches.clear()
+    y64, spec64, ap64 = PB.batch_copy_synthesis(
+        xg, f0g, torch.tensor(arrays["tpos"], device=dev), ng, mesh=m22,
+        **f64kw)
+    torch.cuda.synchronize()
+    r64 = res["f64"] = dict(launches=dict(_build.launches))
+    rows = slice(dl * bl, (dl + 1) * bl)
+    for key, got in (("y", y64), ("spec", spec64), ("ap", ap64)):
+        r64[key] = f64_excess(got.to_local().cpu().numpy(),
+                              ref[f"f64_{key}"][rows])
+    full = PD.gather_rows(y64).cpu().numpy()
+    r64["gathered_equal"] = bool(np.array_equal(
+        full[rows], y64.to_local().cpu().numpy()))
+
+    # LongPipeline(mesh=) on phase 9's cut
+    lp = LA.LongPipeline(FS, f0_floor=LONG_FLOOR,
+                         chunk_frames=LONG_CHUNK_FRAMES,
+                         harvest_chunk_ms=HARVEST_CHUNK_MS,
+                         harvest_halo_ms=HARVEST_HALO_MS, device=dev)
+    syn = dict(seed=LONG_SEED, pitch_scale=PITCH, duration_scale=DUR)
+    pulses = []
+    real = pulse_spy(LA, pulses)
+    try:
+        barrier()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        yl, f0l = lp.copy_synthesis(ref["x60"], mesh=m22, **syn)
+        wl = time.perf_counter() - t0
+    finally:
+        LA._pulse_table = real
+    res["long"] = dict(wall_s=wl, launches=dict(_build.launches),
+                       n_chunks=lp.plan(ref["x60"], f0l, DUR).n_chunks)
+    np.savez(d / f"long{rank}.npz", y=yl, f0=f0l,
+             pulses=torch.cat(pulses).numpy())
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["seconds"] = time.perf_counter() - t_rank
+    barrier()
+    (d / f"rank{rank}.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_phase(torch, dev, card, x, noise, kw, x60):
+    """Phase 11: the mesh paths.  (a) an NCCL world of this process alone,
+    mesh (1, 1): batch_wav_to_wav bit-equal to the single-card call, each
+    kernel launched once; (b) MESH_RANKS gloo ranks on cuda:0, spawned
+    once, each with meshes (2, 2) and (1, 4): the main path against the
+    single-card references, zc and refine at their shard shapes against
+    their plain versions, make_mesh(3, 1) degrading, float64
+    batch_copy_synthesis; (c) LongPipeline.copy_synthesis(mesh=) over the
+    ranks on phase 9's cut x60 against this process's sequential and
+    parallel runs.  Returns each C entry's launches per rank in one (2, 2)
+    batch and the (2, 2) float64 copy-synthesis."""
+    import torch.distributed as dist
+
+    from worldtpu_torch import _build
+    from worldtpu_torch import longaudio as LA
+    from worldtpu_torch.analysis import harvest as H
+    from worldtpu_torch.parallel import batch as PB
+    from worldtpu_torch.parallel import distributed as PD
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        y_s, f0_s, _ = PB.batch_wav_to_wav(x, noise, **kw)
+        cand_s, score_s = H.harvest_device_stages(
+            x, torch.zeros(BATCH, device=dev), geo=kw["geo"])
+
+    # ---- (a) NCCL, a world of one, mesh (1, 1) ----
+    PD.init_distributed()
+    try:
+        backend = dist.get_backend()
+        m11 = PB.make_mesh(1, 1)
+
+        def call():
+            out = PB.batch_wav_to_wav(x, noise, mesh=m11, **kw)
+            torch.cuda.synchronize()
+            return out
+
+        def single():
+            out = PB.batch_wav_to_wav(x, noise, **kw)
+            torch.cuda.synchronize()
+            return out
+
+        call()
+        _build.launches.clear()
+        y1, f01, _ = call()
+        c11 = dict(_build.launches)
+        same = (torch.equal(y1.to_local(), y_s)
+                and torch.equal(f01.to_local(), f0_s))
+        _, n11 = count_syncs(torch, lambda: PB.batch_wav_to_wav(
+            x, noise, mesh=m11, **kw))
+        walls = {"single": [], "mesh": []}
+        for mode in ("single", "mesh", "mesh", "single"):
+            walls[mode].append(round(wall_ms(
+                torch, call if mode == "mesh" else single, 5), 2))
+    finally:
+        dist.destroy_process_group()
+    log(f"11(a) {backend}, a world of one, mesh (1, 1): batch_wav_to_wav "
+        f"F0 and y bit-equal to the single-card call {same}; launches "
+        f"{c11}; host syncs {n11}; wall per batch, medians of 5 in turns: "
+        f"single {walls['single']} ms, mesh {walls['mesh']} ms  [{card}]")
+    if not same or any(c11.get(k, 0) != 1 for k in MAIN_KERNELS):
+        raise AssertionError("mesh (1, 1) is not the single-card path")
+
+    # ---- (b), (c): gloo ranks on cuda:0 ----
+    arrays, f64kw = f64_copy_syn_case(torch, dev)
+    with torch.no_grad():
+        yr, sr, ar = PB.batch_copy_synthesis(
+            *(torch.tensor(arrays[k], device=dev)
+              for k in ("x", "f0", "tpos", "noise")), **f64kw)
+    refs = dict(x=x.cpu().numpy(), f0=f0_s.cpu().numpy(),
+                y=y_s.cpu().numpy(), cand=cand_s.cpu().numpy(),
+                score=score_s.cpu().numpy(), x60=x60,
+                f64_y=yr.cpu().numpy(), f64_spec=sr.cpu().numpy(),
+                f64_ap=ar.cpu().numpy())
+    del yr, sr, ar, cand_s, score_s
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as td:
+        d = pathlib.Path(td)
+        for k, v in refs.items():
+            np.save(d / f"{k}.npy", v)
+        (d / "config.json").write_text(json.dumps(dict(
+            arrays=sorted(refs), noise_sum=float(noise.double().sum()))))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--mesh-rank", str(r), "--mesh-dir", td],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(MESH_RANKS)]
+        errs = []
+        try:
+            for r, p in enumerate(procs):
+                left = MESH_JOIN_S - (time.perf_counter() - t0)
+                try:
+                    _, err = p.communicate(timeout=max(left, 1.0))
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"mesh rank {r} did not finish "
+                                         f"within {MESH_JOIN_S} s")
+                errs.append(err)
+                if p.returncode != 0:
+                    raise AssertionError(f"mesh rank {r} exited "
+                                         f"{p.returncode}:\n{err[-4000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        ranks_s = time.perf_counter() - t0
+        res = [json.loads((d / f"rank{r}.json").read_text())
+               for r in range(MESH_RANKS)]
+        longs = [dict(np.load(d / f"long{r}.npz")) for r in range(MESH_RANKS)]
+
+    fails = []
+    for lay in MESH_LAYOUTS:
+        key = str(tuple(lay))
+        rs = [q[key] for q in res]
+        nt = lay[1]
+        log(f"11(b) mesh {lay}, {MESH_RANKS} gloo ranks on cuda:0, "
+            f"coordinates {[q['coord'] for q in rs]}: launches per rank "
+            f"{[q['launches'] for q in rs]}")
+        log(f"  stages (candidates, scores) bit-equal to the single-card "
+            f"stages {[q['stages_equal'] for q in rs]} (max diff "
+            f"{max(q['stages_max_diff'] for q in rs):.3e}); F0 bit-equal "
+            f"{[q['f0_equal'] for q in rs]}, max |dF0| "
+            f"{max(q['f0_max_diff'] for q in rs):.3e} Hz (gate "
+            f"{MESH_F0_ATOL}), voicing identical "
+            f"{all(q['voicing_same'] for q in rs)}; y bit-equal "
+            f"{[q['y_equal'] for q in rs]}, short-time RMS max diff "
+            f"{max(q['rms_max_diff'] for q in rs):.3e} (gate "
+            f"{MESH_RMS_ATOL})")
+        log(f"  zc at the shard shapes {[q['zc']['shape'] for q in rs]}: "
+            f"equal to its plain version {[q['zc']['equal'] for q in rs]} "
+            f"(tol 0); refine on slabs of {[q['refine']['frames'] for q in rs]}"
+            f" frames ({[q['refine']['pairs'] for q in rs]} active pairs): "
+            f"max abs err / max |sum| "
+            f"{max(q['refine']['err'] / q['refine']['scale'] for q in rs):.2e}"
+            f" (tol {REFINE_REL})")
+        log(f"  wall per batch (host clock, ranks sharing one card: the "
+            f"mesh code's overhead, not scaling), medians of 5 in turns "
+            f"single/mesh/mesh/single, per rank: "
+            + "; ".join(f"r{i} single {[round(w, 1) for w in q['walls']['single']]}"
+                        f" mesh {[round(w, 1) for w in q['walls']['mesh']]}"
+                        for i, q in enumerate(rs))
+            + f" ms; host syncs per batch {[q['syncs'] for q in rs]}  "
+            f"[{card}]")
+        for q in rs:
+            if (q["ovf"] or not q["finite"] or not q["voicing_same"]
+                    or q["f0_max_diff"] > MESH_F0_ATOL
+                    or q["rms_max_diff"] > MESH_RMS_ATOL
+                    or not q["zc"]["equal"]
+                    or q["refine"]["err"] > REFINE_REL * q["refine"]["scale"]
+                    or any(q["launches"].get(k, 0) != 1
+                           for k in MAIN_KERNELS)):
+                fails.append(f"mesh {lay} rank {rs.index(q)}: {q}")
+            if nt == 1 and not q["stages_equal"]:
+                fails.append(f"mesh {lay}: stages differ with one time rank")
+    deg = [q["degraded_3x1"] for q in res]
+    f64 = [q["f64"] for q in res]
+    log(f"11(b) make_mesh(3, 1) on {MESH_RANKS} ranks: {deg}; float64 "
+        f"batch_copy_synthesis on t22 x{MESH_F64_REPS} under (2, 2): max "
+        f"relative error of y, spec, ap per rank "
+        f"{[[round(q[k][1], 14) for k in ('y', 'spec', 'ap')] for q in f64]}"
+        f" (gate rtol {MESH_F64_RTOL}, atol {MESH_F64_ATOL}); launches "
+        f"{[q['launches'] for q in f64]}; gather_rows equal "
+        f"{[q['gathered_equal'] for q in f64]}; peak device memory per rank "
+        f"{[round(q['peak_gib'], 3) for q in res]} GiB; rank walls "
+        f"{[round(q['seconds'], 1) for q in res]} s  [{card}]")
+    for q in f64:
+        if (any(q[k][0] > 0 for k in ("y", "spec", "ap"))
+                or q["launches"].get("wt_ola_f64", 0) < 1
+                or not q["gathered_equal"]):
+            fails.append(f"float64 copy-synthesis: {q}")
+    if any(v != [4, 1] for v in deg):
+        fails.append(f"make_mesh(3, 1) gave {deg}")
+
+    # (c) against this process's sequential and parallel runs
+    lp = LA.LongPipeline(FS, f0_floor=LONG_FLOOR,
+                         chunk_frames=LONG_CHUNK_FRAMES,
+                         harvest_chunk_ms=HARVEST_CHUNK_MS,
+                         harvest_halo_ms=HARVEST_HALO_MS, device=dev)
+    syn = dict(seed=LONG_SEED, pitch_scale=PITCH, duration_scale=DUR)
+    pulses = []
+    real = pulse_spy(LA, pulses)
+    try:
+        ys, f0s = lp.copy_synthesis(x60, **syn)
+    finally:
+        LA._pulse_table = real
+    yp, _ = lp.copy_synthesis(x60, parallel=True, **syn)
+    pos_s = torch.cat(pulses).numpy()
+    ym = longs[0]["y"]
+    same_y = all(np.array_equal(q["y"], ym) for q in longs)
+    same_f0 = all(np.array_equal(q["f0"], f0s) for q in longs)
+    pos_m = np.sort(np.concatenate([q["pulses"] for q in longs]))
+    same_pulses = np.array_equal(pos_m, pos_s)
+    rel = windowed_rel(ym, ys)
+    q99, q90 = float(np.quantile(rel, 0.99)), float(np.quantile(rel, 0.9))
+    lq = [q["long"] for q in res]
+    log(f"11(c) LongPipeline.copy_synthesis(mesh=(2, 2)) on the first "
+        f"{len(x60) / FS:.2f} s: {lq[0]['n_chunks']} chunks over "
+        f"{MESH_RANKS} ranks; every rank's y equal {same_y}, F0 equal to "
+        f"the sequential run's {same_f0}; {len(pos_m)} pulses, identical "
+        f"to the sequential run's {same_pulses}; windowed relative error "
+        f"against sequential q99 {q99:.2e} (gate {PARITY_Q99}), q90 "
+        f"{q90:.2e} (gate {WINDOW_Q90}); bit-equal to parallel=True "
+        f"{np.array_equal(ym, yp)} (max |d| "
+        f"{float(np.abs(ym - yp).max()):.3e}); launches per rank "
+        f"{[q['launches'] for q in lq]}; walls {[round(q['wall_s'], 2) for q in lq]}"
+        f" s  [{card}]")
+    if (not (same_y and same_f0 and same_pulses) or q99 >= PARITY_Q99
+            or q90 >= WINDOW_Q90 or lq[0]["n_chunks"] != 12):
+        fails.append("LongPipeline(mesh=) disagrees with the sequential "
+                     "run")
+    log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f} s (the ranks "
+        f"{ranks_s:.1f} s)")
+    if fails:
+        raise AssertionError("phase 11:\n" + "\n".join(fails))
+    per_rank = []
+    for q in res:
+        c = collections.Counter(q[str((2, 2))]["launches"])
+        c.update(q["f64"]["launches"])
+        per_rank.append(c)
+    return {k: [c.get(k, 0) for c in per_rank]
+            for k in set().union(*per_rank)}
 
 
 if __name__ == "__main__":

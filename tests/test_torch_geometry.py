@@ -88,20 +88,25 @@ def test_import_leaves_jax_out():
 
 
 def test_no_jax_import_in_sources():
-    """No file of the port, and not chip_smoke.py, imports JAX or anything
-    of ``worldtpu`` (the port keeps its own copies of what it needs)."""
+    """No file of the port, not chip_smoke.py and not the mesh tests' rank
+    worker imports JAX or anything of ``worldtpu`` (the port keeps its own
+    copies of what it needs)."""
     import pathlib
     import re
     root = pathlib.Path(TH.__file__).resolve().parents[1]
     banned = re.compile(r"^\s*(from|import)\s+(jax|worldtpu)(\.|\s|$)")
-    paths = [*root.rglob("*.py"), root.parent / "chip_smoke.py"]
+    worker = root.parent / "tests" / "torch_mesh_worker.py"
+    paths = [*root.rglob("*.py"), root.parent / "chip_smoke.py", worker]
     assert len(paths) > 20
     assert {root / "codec.py", root / "io" / "corpus.py",
             root / "analysis" / "harvest.py", root / "native.py",
             root / "longaudio.py", root / "analysis" / "longform.py",
             root / "synthesis" / "noise.py", root / "api.py",
             root / "cli.py", root / "parallel" / "batch.py",
+            root / "parallel" / "distributed.py",
+            root / "parallel" / "__init__.py",
             root / "analysis" / "d4c.py"} <= set(paths)
+    assert worker.is_file()
     for path in paths:
         for line in path.read_text().splitlines():
             assert not banned.match(line), (path, line)

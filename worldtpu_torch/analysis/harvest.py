@@ -204,24 +204,34 @@ def _bank_from_kern_np(kern):
     return W, kb
 
 
-@functools.lru_cache(maxsize=8)
-def _filter_banks(geo, device):
-    """[(lo, hi, Lg, W, K' tensor)] per band group, on device."""
+@functools.lru_cache(maxsize=16)
+def _filter_banks(geo, device, bands=None):
+    """[(Lg, W, K' tensor)] per band group that holds one of ``bands``
+    (sorted global band indices; None: every band), on device.  A group's
+    bank holds only those of its bands, each with the group's taps Lg and
+    width W, so each band's column is the one of the whole bank."""
     out = []
     for lo, hi, Lg in _conv_groups(geo):
-        W, kb = _bank_from_kern_np(_bandpass_kernels_np(geo, lo, hi, Lg))
-        out.append((lo, hi, Lg, W, torch.as_tensor(kb, device=device)))
+        kern = _bandpass_kernels_np(geo, lo, hi, Lg)
+        if bands is not None:
+            kern = kern[[b - lo for b in bands if lo <= b < hi]]
+            if not len(kern):
+                continue
+        W, kb = _bank_from_kern_np(kern)
+        out.append((Lg, W, torch.as_tensor(kb, device=device)))
     return out
 
 
-def band_filter(ym, geo):
+def band_filter(ym, geo, bands=None):
     """Band filter bank: ym [B, y_length] -> [B, n_channels, y_length], as
     one f32 matmul per band group (the same correlation as the reference's
-    circular-FFT filtering, whose zero padding makes it linear)."""
+    circular-FFT filtering, whose zero padding makes it linear).  With
+    ``bands`` (a sorted tuple of band indices) only those rows, in that
+    order: [B, len(bands), y_length]."""
     B, y_len = ym.shape
     P = -(-y_len // 128)
     parts = []
-    for _, _, Lg, W, kb in _filter_banks(geo, ym.device):
+    for Lg, W, kb in _filter_banks(geo, ym.device, bands):
         nbg = kb.shape[1] // 128
         ypad = Fn.pad(ym, (Lg - 1, 128 * (P + W) - y_len - Lg + 1))
         blocks = ypad.reshape(B, P + W, 128)
@@ -560,9 +570,14 @@ def harvest_device_stages(x, mean_y, *, geo, grid=1):
     cand, score = _refine.refine_stage(
         y - mean_y[:, None], cand, tpos, geo=geo_k,
         dedup_tol=REFINE_DEDUP_TOL)
-    # refined candidates are compacted into the first CAP slots and the
-    # rest are zero; a zero neighbour gives relative error exactly 1.0,
-    # the clamp value, so pruning over the leading slots is exact
+    return prune_compacted(cand, score)
+
+
+def prune_compacted(cand, score):
+    """remove_unreliable_stage of the refine stage's compacted [B, F, S]
+    candidates and scores: refined candidates fill the first CAP slots and
+    the rest are zero; a zero neighbour gives relative error exactly 1.0,
+    the clamp value, so pruning over the leading slots is exact."""
     with record_function("wt.prune"):
         S = cand.shape[-1]
         w = min(S, _refine.CAP)

@@ -1,7 +1,8 @@
 """Full long-audio pipeline: wav -> wav in bounded device memory for
 arbitrarily long single utterances.
 
-Port of worldtpu/longaudio.py, float32 and float64, on one device.  The
+Port of worldtpu/longaudio.py, float32 and float64, on one device (its
+chunks optionally split over a mesh of ranks, ``mesh=``).  The
 batched programs materialize [F, K] slabs and a [max_pulses, fft_size]
 response slab per utterance: fine for utterances, fatal for a 10-minute
 recording.  This module composes chunked pieces instead:
@@ -349,8 +350,7 @@ class LongPipeline:
         device: where everything runs ("cuda", "cpu" or a torch.device).
 
     Against worldtpu's class: the noise key is ``seed`` (an int, the key
-    of JAX's PRNGKey(seed), or two uint32 words), and no ``mesh`` (one
-    device).
+    of JAX's PRNGKey(seed), or two uint32 words).
     """
 
     def __init__(self, fs, *, frame_period=5.0, chunk_frames=1000,
@@ -382,7 +382,7 @@ class LongPipeline:
 
     def copy_synthesis(self, x, *, seed=0, pitch_scale=1.0,
                        duration_scale=1.0, dtype=torch.float32,
-                       on_overflow="raise", parallel=False):
+                       on_overflow="raise", parallel=False, mesh=None):
         """wav -> wav in ``dtype`` (float32, or float64: the parity path's
         stages and analysis, JAX's float64 noise rows).  Returns
         (y [out_length], f0 [n_frames]) as numpy, y in x's dtype.
@@ -398,7 +398,16 @@ class LongPipeline:
         chunk; the expensive chunks are then independent and run as rows
         of batched calls, PARALLEL_GROUP chunks at a time (one OLA launch
         per group).  The pulses are those of the sequential mode by
-        construction (the prescan reuses _timebase_core)."""
+        construction (the prescan reuses _timebase_core).
+
+        ``mesh`` (a ('data', 'time') mesh, ``parallel.batch.make_mesh``;
+        every rank of it calls with the same input): every rank runs
+        LongHarvest and the prescan, then the chunk axis, padded to a
+        multiple of the mesh's size, is split into contiguous runs over
+        its ranks in (data, time) order; each rank runs its chunks in
+        groups of PARALLEL_GROUP (padded chunks are silence), the chunk
+        buffers are all-gathered, and every rank lands them in chunk order
+        and returns the same y."""
         check_dtype(dtype)
         key = N.as_key(seed)
         out_dtype = (torch.empty((), dtype=x.dtype).numpy().dtype
@@ -407,8 +416,11 @@ class LongPipeline:
         f0_np = np.asarray(f0_np, np.float64) * pitch_scale
         with torch.no_grad():
             p = self.plan(x, f0_np, duration_scale, dtype)
-            y, ovf = (self._parallel if parallel else self._sequential)(
-                p, key)
+            if mesh is not None:
+                y, ovf = self._sharded(p, key, mesh)
+            else:
+                y, ovf = (self._parallel if parallel else
+                          self._sequential)(p, key)
         if bool(ovf.any()):
             msg = ("pulse bound exceeded in a synthesis chunk; rerun with "
                    "a larger chunk margin")
@@ -449,6 +461,30 @@ class LongPipeline:
             pending = queued
         _land(y, p, *pending)
         return y, torch.cat(flags).cpu()
+
+    def _sharded(self, p, key, mesh):
+        from worldtpu_torch.parallel.distributed import all_gather
+        carries, ords, ovf_scan = _phase_prescan(p, self.device)
+        d, t = mesh.get_coordinate()
+        n_time = mesh.size(1)
+        per = -(-p.n_chunks // (mesh.size(0) * n_time))
+        k_lo = min((d * n_time + t) * per, p.n_chunks)
+        k_hi = min(k_lo + per, p.n_chunks)
+        buf = torch.zeros((per, p.L + p.fft), dtype=p.x_dev.dtype,
+                          device=self.device)
+        ovf = torch.zeros(per, dtype=torch.uint8, device=self.device)
+        for k0 in range(k_lo, k_hi, PARALLEL_GROUP):
+            k1 = min(k0 + PARALLEL_GROUP, k_hi)
+            buf[k0 - k_lo:k1 - k_lo], _, _, ovf[k0 - k_lo:k1 - k_lo] = \
+                _chunk_step(p, k0, k1, carries[k0:k1], ords[k0:k1], key)
+        # every rank's run, in the (data, time) rank order of the split
+        bufs = all_gather(all_gather(buf, mesh, "time"), mesh, "data")
+        ovfs = all_gather(all_gather(ovf, mesh, "time"), mesh, "data")
+        bufs = bufs.reshape(-1, bufs.shape[-1])[:p.n_chunks].cpu().numpy()
+        y = np.zeros(p.out_length + p.fft, np.float64)
+        _land(y, p, 0, lambda: bufs)
+        return y, torch.cat([ovf_scan,
+                             ovfs.reshape(-1)[:p.n_chunks].bool()]).cpu()
 
 
 def _download(buf):

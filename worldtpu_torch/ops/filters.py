@@ -163,9 +163,13 @@ def iir_affine_scan(x, a_coeffs, b_coeffs, block=256):
     Hm, G, Wc, P = _iir_tensors(tuple(a_coeffs), tuple(b_coeffs), L, nb,
                                 x.dtype, x.device)
     lead = x.shape[:-1]
-    xb = Fn.pad(x, (0, nb * L - T)).reshape(*lead, nb, L)
-    c = xb @ Wc                                             # [..., nb, 4]
-    s0 = (c.reshape(*lead, nb * 4) @ P.T).reshape(*lead, nb, 4)
+    xb = Fn.pad(x, (0, nb * L - T)).reshape(-1, nb, L)
+    # one product per row: on the card the kernel of this thin product,
+    # and so its bits, follows the number of rows, and a mesh's data shard
+    # must decimate its rows as the whole batch does (on the CPU the rows'
+    # products are the batched product's bits)
+    c = torch.stack([r @ Wc for r in xb])                   # [rows, nb, 4]
+    s0 = (c.reshape(-1, nb * 4) @ P.T).reshape(-1, nb, 4)
     y = s0 @ G.T + xb @ Hm
     return y.reshape(*lead, nb * L)[..., :T]
 

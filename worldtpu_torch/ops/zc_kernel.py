@@ -48,11 +48,14 @@ def zc_layout(e_max):
     return "shared" if 16 * e_max <= ZC_SHARED_EVENT_BYTES else "global"
 
 
-def band_candidates(filt, geo):
+def band_candidates(filt, geo, bounds=None):
     """Raw band candidates [B, nb, F] from band signals filt [B, nb, L]
-    (nb = geo.n_channels, L = geo.y_length, F = geo.f0_length)."""
+    (L = geo.y_length, F = geo.f0_length) of the bands whose boundary
+    frequencies are ``bounds`` [nb] float32 on filt's device (None: every
+    band of the geometry, nb = geo.n_channels)."""
     args = geometry_args(geo)
-    bounds = _bounds(geo, filt.device)
+    if bounds is None:
+        bounds = _bounds(geo, filt.device)
     if device_kind(filt) == "cpu":
         return band_candidates_plain(filt, bounds, **args)
     return band_candidates_cuda(filt, bounds, **args)

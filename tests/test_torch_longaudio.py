@@ -358,9 +358,9 @@ def test_on_overflow_raise_and_warn(utterance, monkeypatch):
     assert np.isfinite(y).all()
 
 
-def test_float64_raises(utterance):
-    """float64 long audio is ported (tests/test_torch_longaudio_f64.py);
-    a dtype the pipeline does not compute in (float16) raises."""
+def test_float16_raises(utterance):
+    """A dtype the pipeline does not compute in (float16) raises; float64
+    long audio is ported (tests/test_torch_longaudio_f64.py)."""
     x, contour = utterance
     with pytest.raises(ValueError, match="unsupported dtype"):
         _pipeline(200, contour).copy_synthesis(x, dtype=torch.float16)

@@ -81,9 +81,9 @@ def test_long_harvest_matches_jax_single_chunk(monkeypatch):
              halo_ms=750)
 
 
-def test_long_harvest_float64_raises():
-    """float64 LongHarvest is ported (tests/test_torch_longaudio_f64.py);
-    a dtype Harvest does not compute in (float16) raises."""
+def test_long_harvest_float16_raises():
+    """A dtype Harvest does not compute in (float16) raises; float64
+    LongHarvest is ported (tests/test_torch_longaudio_f64.py)."""
     lh = TL.LongHarvest(16000, device="cpu")
     with pytest.raises(ValueError, match="unsupported dtype"):
         lh.compute(np.zeros(16000, np.float32), dtype=torch.float16)

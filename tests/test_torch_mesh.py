@@ -209,6 +209,34 @@ def test_make_mesh_over_ranks(ranks):
         assert out[r]["coord22"].tolist() == [r // 2, r % 2]
 
 
+def test_batch_wav_to_wav_mesh_4x1(ranks):
+    """batch_wav_to_wav under (4, 1), make_mesh's default data-only
+    layout (t22 x2 tiled to four rows: one utterance a rank, no time
+    split) against the single-device call on t22 x2: F0 within 1e-4 Hz
+    with identical voicing and short-time RMS within 0.02 (the gates of
+    the other layouts)."""
+    inp, out = ranks.inp, ranks.out()
+    x = torch.tensor(inp["w_x"])
+    geo = TH.HarvestGeometry(int(inp["fs22"]), x.shape[1], f0_floor=40.0)
+    y1, f01, ovf1 = TB.batch_wav_to_wav(
+        x, torch.tensor(inp["w_noise"]), geo=geo, fs=int(inp["fs22"]),
+        fft_size=int(inp["fft22"]), max_half_window=int(inp["mhw22"]),
+        frame_period_s=0.00625, out_length=int(inp["w_out"]),
+        max_pulses=int(inp["w_mp"]), pitch_scale=1.2, return_overflow=True)
+    for r in range(WORLD):
+        np.testing.assert_array_equal(out[r]["w41_f0"], out[0]["w41_f0"])
+        np.testing.assert_array_equal(out[r]["w41_y"], out[0]["w41_y"])
+    f0, y = out[0]["w41_f0"], out[0]["w41_y"]
+    ref_f0, ref_y = np.tile(f01.numpy(), (2, 1)), np.tile(y1.numpy(), (2, 1))
+    assert f0.shape == ref_f0.shape and y.shape == ref_y.shape
+    assert not out[0]["w41_ovf"].any() and not ovf1.any()
+    np.testing.assert_array_equal(f0 > 0, ref_f0 > 0)
+    assert (f0 > 0).mean() > 0.3
+    np.testing.assert_allclose(f0, ref_f0, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(_short_time_rms(y), _short_time_rms(ref_y),
+                               atol=0.02)
+
+
 def test_process_local_batch_round_trip(ranks):
     """Each data row's ranks pass their two rows; the DTensor's local rows
     are theirs, and full_tensor() and gather_rows give the whole batch."""

@@ -74,13 +74,15 @@ def _copy_syn_case(inp, mesh, out):
     out["cs_y_global"] = D.gather_rows(y).numpy()
 
 
-def _wav_to_wav_case(inp, mesh, out, tag):
-    """batch_wav_to_wav on t22 x2, pitch x1.2, duration x1.25."""
+def _wav_to_wav_case(inp, mesh, out, tag, tiles=1):
+    """batch_wav_to_wav on t22 x2 (its rows and noise tiled ``tiles``
+    times), pitch x1.2, duration x1.25."""
     from worldtpu_torch.parallel import batch as B
-    x = torch.tensor(inp["w_x"])
+    x = torch.tensor(np.tile(inp["w_x"], (tiles, 1)))
     geo = _geo22(inp, x)
     y, f0, ovf = B.batch_wav_to_wav(
-        x, torch.tensor(inp["w_noise"]), geo=geo, fs=int(inp["fs22"]),
+        x, torch.tensor(np.tile(inp["w_noise"], (tiles, 1, 1))), geo=geo,
+        fs=int(inp["fs22"]),
         fft_size=int(inp["fft22"]), max_half_window=int(inp["mhw22"]),
         frame_period_s=0.00625, out_length=int(inp["w_out"]),
         max_pulses=int(inp["w_mp"]), pitch_scale=1.2, return_overflow=True,
@@ -132,6 +134,8 @@ def main(rank, world, store, out_dir):
                          i, m, o, "w22")),
                      ("w2w_14", lambda i, m, o: _wav_to_wav_case(
                          i, meshes["m14"], o, "w14")),
+                     ("w2w_41", lambda i, m, o: _wav_to_wav_case(
+                         i, meshes["m31"], o, "w41", tiles=2)),
                      ("long", _long_case)):
         t0 = time.perf_counter()
         fn(inp, m22, out)

@@ -42,7 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: rounded, as the plain versions compute them: zc's frame assignment
 #: (a ceil) and band gates, zc events' positions and extend's error
 #: comparisons are held to their plain versions exactly, and a fused
-#: multiply-add there could flip a knife edge.  refine is held to a
+#: multiply-add there could flip a knife edge; the contour merge's running
+#: mean and the smoothing recursion keep the reference's operation order.
+#: refine is held to a
 #: tolerance (1e-5 of the largest sum), and contraction halves the
 #: instructions of its 24 accumulations.  ola's sums are plain adds.
 FMAD = {"refine": "true"}
@@ -77,6 +79,12 @@ _SIGNATURES = {
     # filt, ev, ccol, table (host: lo, nb_g, e_cap, c_row, ev_off, ccol_off
     # per group), n_groups, B, nb, L, n_cols, n_store, stream
     "wt_zc_events": (_P, _P, _P, _P) + (_I,) * 6 + (_P,),
+    # f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on, so, out, ssum,
+    # keep, order, rows (or NULL), s1, s2 (or NULL), B, F, S, E, c_len,
+    # stream
+    "wt_contour_merge": (_P,) * 17 + (_I,) * 4 + (_F, _P),
+    # f0, st, ed, n_sec, out, B, F, n, NS, lag, chunk, stream
+    "wt_contour_smooth": (_P,) * 5 + (_I,) * 6 + (_P,),
 }
 
 

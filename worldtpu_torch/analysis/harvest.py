@@ -23,7 +23,6 @@ with full FFTs, pruning over every slot, and the host contour
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
@@ -37,7 +36,7 @@ from worldtpu_torch.ops import refine_kernel as _refine
 from worldtpu_torch.ops import zc_kernel as _zc
 from worldtpu_torch.ops.fftutil import get_suitable_fft_size
 from worldtpu_torch.ops.interp import interp1
-from worldtpu_torch.ops.numeric import matlab_round, rdiv
+from worldtpu_torch.ops.numeric import device_cache, matlab_round, rdiv
 
 #: near-duplicate candidate tolerance of the production refine
 #: (worldtpu.analysis.harvest.REFINE_DEDUP_TOL)
@@ -204,7 +203,7 @@ def _bank_from_kern_np(kern):
     return W, kb
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _filter_banks(geo, device, bands=None):
     """[(Lg, W, K' tensor)] per band group that holds one of ``bands``
     (sorted global band indices; None: every band), on device.  A group's

@@ -21,6 +21,7 @@ import torch.nn.functional as Fn
 
 from worldtpu_torch import constants as C
 from worldtpu_torch import native
+from worldtpu_torch.ops.numeric import device_cache
 from worldtpu_torch.ops.seqsum import cumsum_sequential
 
 # Decimation anti-alias filter coefficients by ratio, verbatim from the
@@ -144,7 +145,7 @@ def _iir_boundary_table(a_coeffs, b_coeffs, block, nb):
     return P.transpose(0, 2, 1, 3).reshape(nb * 4, nb * 4)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(maxsize=32)
 def _iir_tensors(a_coeffs, b_coeffs, block, nb, dtype, device):
     Hm, G, Wc, _ = _iir_block_tables(a_coeffs, b_coeffs, block)
     P = _iir_boundary_table(a_coeffs, b_coeffs, block, nb)

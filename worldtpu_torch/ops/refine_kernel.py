@@ -13,7 +13,6 @@ frame row, zero-padded to S), as on the TPU.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -22,7 +21,8 @@ from torch.profiler import record_function
 
 from worldtpu_torch import constants as C
 from worldtpu_torch import _build
-from worldtpu_torch.ops.numeric import device_kind, matlab_round, rdiv
+from worldtpu_torch.ops.numeric import (device_cache, device_kind,
+                                        matlab_round, rdiv)
 
 CAP = 64  # refined-slot capacity per frame (observed active max ~37)
 
@@ -149,7 +149,7 @@ def finish(sums, prep, *, geo):
     return refined[..., :S], score[..., :S]
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _twiddles(n_fft, device):
     """[2, n_fft] cos/sin of 2*pi*k/n_fft in f32 (the exactly reduced
     phases of the refine DFT), made once per size and device."""

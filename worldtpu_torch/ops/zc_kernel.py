@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as Fn
 
 from worldtpu_torch import _build
-from worldtpu_torch.ops.numeric import device_kind
+from worldtpu_torch.ops.numeric import device_cache, device_kind
 
 #: rows of the [B*nb, L] signal processed together by the plain version
 #: (bounds its int64 rank/cumsum temporaries)
@@ -61,7 +61,7 @@ def band_candidates(filt, geo, bounds=None):
     return band_candidates_cuda(filt, bounds, **args)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _bounds(geo, device):
     """Band boundary frequencies [nb] f32 on device, copied there once per
     geometry (the copy from host memory blocks the host)."""

@@ -4,6 +4,8 @@
                 'time') DeviceMesh of ranks
   distributed — the torch.distributed entry (init_distributed,
                 global_mesh, process_local_batch)
+  graphs      — the captured CUDA graphs of the single-device batch
+                programs (``graphs.clear()`` drops them)
 
 Lazy attribute table so `worldtpu_torch.parallel.init_distributed()`
 works without importing the batch programs first.

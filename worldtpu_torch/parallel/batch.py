@@ -26,8 +26,9 @@ Inputs are global tensors (the same on every rank; each rank takes its
 data shard's rows) or DTensors placed (Shard(0), Replicate()) on the mesh
 (``distributed.process_local_batch``).  Outputs are DTensors placed
 (Shard(0), Replicate()), the counterpart of JAX's NamedSharding(P("data",
-None)): each rank holds its data shard's rows; ``.full_tensor()`` or
-``distributed.gather_rows`` give the global array.  The kernels see plain
+None)): each rank holds its data shard's rows; ``distributed.gather_rows``
+gives the global array on any backend (``DTensor.full_tensor()`` of CUDA
+DTensors crashed gloo ranks, torch 2.11).  The kernels see plain
 local tensors.  With one time rank the mesh path runs the single-device
 stages' operations on each data shard, so a (1, 1) mesh gives the
 single-device result bit for bit.
@@ -41,8 +42,6 @@ shard over frames as in float32.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 import torch.nn.functional as Fn
@@ -53,6 +52,8 @@ from worldtpu_torch.analysis.cheaptrick import cheaptrick_frames
 from worldtpu_torch.analysis.d4c import d4c_frames
 from worldtpu_torch.ops import refine_kernel as _refine
 from worldtpu_torch.ops import zc_kernel as _zc
+from worldtpu_torch.ops.numeric import device_cache
+from worldtpu_torch.parallel import graphs as _graphs
 from worldtpu_torch.synthesis import synthesis as _syn
 
 MESH_DIMS = ("data", "time")
@@ -213,22 +214,24 @@ def batch_wav_to_wav(x, noise, *, geo, fs, fft_size, max_half_window,
     ``batch_harvest_f0`` and the rest as ``batch_copy_synthesis`` under the
     mesh (F0 padded with unvoiced frames to a multiple of the time ranks;
     they synthesize nothing inside out_length); outputs are DTensors.
+    Without a mesh, float32 CUDA input runs as a captured CUDA graph from
+    the second call of a shape on (``parallel.graphs``); the mesh path runs
+    eagerly.
 
     Returns (y, f0 [B, n_grid]), plus a [B] bool of pulse-bound overflows
     with ``return_overflow`` (size max_pulses with
     synthesis.capacity_max_pulses and check it)."""
     if mesh is None:
-        f0, tpos = _scaled_f0(x, geo, pitch_scale, grid_ms)
-        y, _, _, ovf = batch_copy_synthesis(
-            x, f0, tpos, noise, fs=fs, fft_size=fft_size,
-            max_half_window=max_half_window, frame_period_s=frame_period_s,
-            out_length=out_length, max_pulses=max_pulses,
-            return_overflow=True)
-        return (y, f0, ovf) if return_overflow else (y, f0)
+        return _graphs.call(
+            _wav_to_wav, (x, noise), pitch_scale, geo=geo, fs=fs,
+            fft_size=fft_size, max_half_window=max_half_window,
+            frame_period_s=frame_period_s, out_length=out_length,
+            max_pulses=max_pulses, return_overflow=return_overflow,
+            grid_ms=grid_ms)
     x_l = _local(x, mesh)
     n_grid = geo.n_grid()
     f0 = _harvest_f0_local(x_l, geo, n_grid, mesh, grid_ms)
-    f0 = (f0 * pitch_scale).to(x_l.dtype)
+    f0 = _scale(f0, _graphs.scale_buffer(pitch_scale, x_l))
     f0_p = Fn.pad(f0, (0, (-n_grid) % mesh.size(1)))
     y, _, _, ovf = _copy_synthesis_local(
         x_l, f0_p, _frame_times(f0_p.shape[1], geo, x_l),
@@ -239,6 +242,18 @@ def batch_wav_to_wav(x, noise, *, geo, fs, fft_size, max_half_window,
     return outs if return_overflow else outs[:2]
 
 
+def _wav_to_wav(x, noise, scale, *, geo, fs, fft_size, max_half_window,
+                frame_period_s, out_length, max_pulses, return_overflow,
+                grid_ms):
+    """batch_wav_to_wav on one device, the pitch scale a 0-d tensor."""
+    f0, tpos = _scaled_f0(x, geo, scale, grid_ms)
+    y, _, _, ovf = batch_copy_synthesis(
+        x, f0, tpos, noise, fs=fs, fft_size=fft_size,
+        max_half_window=max_half_window, frame_period_s=frame_period_s,
+        out_length=out_length, max_pulses=max_pulses, return_overflow=True)
+    return (y, f0, ovf) if return_overflow else (y, f0)
+
+
 @torch.no_grad()
 def batch_analyze(x, *, geo, fs, fft_size, max_half_window, pitch_scale=1.0,
                   grid_ms=1, mesh=None):
@@ -246,19 +261,28 @@ def batch_analyze(x, *, geo, fs, fft_size, max_half_window, pitch_scale=1.0,
     [B, n_grid, K], ap [B, n_grid, K]) — Harvest (with the device contour
     chain, on the ``grid_ms`` candidate grid), pitch scaling, CheapTrick and
     D4C on the scaled F0.  ``mesh``: Harvest as ``batch_harvest_f0``, the
-    analysis over 'data' only (as JAX's), DTensor outputs."""
+    analysis over 'data' only (as JAX's), DTensor outputs.  Without a mesh,
+    float32 CUDA input runs as a captured CUDA graph from the second call of
+    a shape on, as ``batch_wav_to_wav``."""
     if mesh is None:
-        f0, tpos = _scaled_f0(x, geo, pitch_scale, grid_ms)
-        spec, ap = _analysis(x, f0, tpos, fs=fs, fft_size=fft_size,
-                             max_half_window=max_half_window)
-        return f0, spec, ap
+        return _graphs.call(_analyze, (x,), pitch_scale, geo=geo, fs=fs,
+                            fft_size=fft_size,
+                            max_half_window=max_half_window, grid_ms=grid_ms)
     x_l = _local(x, mesh)
     n_grid = geo.n_grid()
     f0 = _harvest_f0_local(x_l, geo, n_grid, mesh, grid_ms)
-    f0 = (f0 * pitch_scale).to(x_l.dtype)
+    f0 = _scale(f0, _graphs.scale_buffer(pitch_scale, x_l))
     spec, ap = _analysis(x_l, f0, _frame_times(n_grid, geo, x_l), fs=fs,
                          fft_size=fft_size, max_half_window=max_half_window)
     return tuple(_global(o, mesh) for o in (f0, spec, ap))
+
+
+def _analyze(x, scale, *, geo, fs, fft_size, max_half_window, grid_ms):
+    """batch_analyze on one device, the pitch scale a 0-d tensor."""
+    f0, tpos = _scaled_f0(x, geo, scale, grid_ms)
+    spec, ap = _analysis(x, f0, tpos, fs=fs, fft_size=fft_size,
+                         max_half_window=max_half_window)
+    return f0, spec, ap
 
 
 @torch.no_grad()
@@ -310,7 +334,7 @@ def _harvest_f0_local(x, geo, n_out, mesh, grid):
                                   grid_ms=grid)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _band_shard(geo, t, nt, device):
     """Time rank t's stratified band subset of the geometry (nt time
     ranks): (its real bands as a tuple, or None for all of them; the
@@ -371,15 +395,20 @@ def _frame_times(n, geo, x):
         * (geo.frame_period / 1000.0)
 
 
-def _scaled_f0(x, geo, pitch_scale, grid_ms):
+def _scale(f0, scale):
+    """F0 times the 0-d pitch-scale tensor, in f0's dtype (one float32
+    product, the bits of f0 * a Python float)."""
+    return (f0 * scale).to(f0.dtype)
+
+
+def _scaled_f0(x, geo, scale, grid_ms):
     """Harvest F0 [B, n_grid] of x [B, T] on the grid_ms candidate grid
-    times pitch_scale, and the frame times [n_grid]."""
+    times the 0-d pitch-scale tensor, and the frame times [n_grid]."""
     n_grid = geo.n_grid()
     mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
     f0 = _hv.harvest_device_full(x, mean, geo=geo, n_out=n_grid,
                                  grid=grid_ms)
-    f0 = (f0 * pitch_scale).to(x.dtype)
-    return f0, _frame_times(n_grid, geo, x)
+    return _scale(f0, scale), _frame_times(n_grid, geo, x)
 
 
 def _analysis(x, f0, tpos, *, fs, fft_size, max_half_window):

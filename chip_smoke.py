@@ -71,6 +71,8 @@ Phases (any failure raises, so the exit code is not 0):
      printed);
   6. the user entry points on the card: HarvestKernel.compute_batch with
      the capacity check on the B=8 batch (F0 equal to the main path's),
+     then replayed (HarvestKernel.forward's captured program) against the
+     eager program: F0 bit-equal, launches equal, walls in turns;
      HarvestKernel.compute on the batch's audio as one long utterance (the
      device contour chain past 8192 frames and zc's global event layout,
      with its peak device memory beside the same call with the contour
@@ -97,8 +99,11 @@ Phases (any failure raises, so the exit code is not 0):
      Harvest at length: phase 6's long utterance through
      HarvestKernel.compute(dtype=torch.float64), its wall, peak device
      memory and agreement with phase 6's float32 F0 (voicing >= 0.97, F0
-     RMSE <= 1 Hz); and the CLI analyze + synthesize without --f32,
-     --device cuda, with ``jax`` and ``worldtpu`` blocked;
+     RMSE <= 1 Hz), two calls; the host syncs of the float64 device
+     stages (after the host mean, before the download) on t22 and on that
+     utterance (CUDA sync debug mode; gate 0); and the CLI analyze +
+     synthesize without --f32, --device cuda, with ``jax`` and
+     ``worldtpu`` blocked;
   8. the codec and corpus streaming on the card: (a) bench.py config 5's
      corpus (16 bench.synth_utterance_diverse wavs written as 16-bit
      files) through io.corpus.iter_corpus (the C++ reader, required) in
@@ -112,8 +117,9 @@ Phases (any failure raises, so the exit code is not 0):
      outputs bit-equal to the first pass's; reports the first pass's wall,
      the capturing pass's, and steady passes with and without the
      overlap, in turns, and
-     HarvestKernel.compute_corpus against compute_batch (F0 equal bit for
-     bit, walls in turns); (b) the codec in float64 on the C++ dumps of
+     HarvestKernel.compute_corpus against compute_batch and the eager
+     program (F0 equal bit for bit, launches equal, walls in turns); (b)
+     the codec in float64 on the C++ dumps of
      t22, t16, t48 at tests/test_codec.py's tolerances, and in float32 on
      the main path's spectrogram and aperiodicity against the CPU, with
      each function's device time; (c) MCD (bench.quality_metrics) against
@@ -133,12 +139,22 @@ Phases (any failure raises, so the exit code is not 0):
      its F0 with the same indexed_noise rows (pulse positions identical;
      100 ms windowed relative error q99 < 1e-3 and q90 < 0.1; block
      analysis frames that differ from the unchunked analysis counted);
-     (b) the 600 s recording, sequential and parallel=True in turns (finite, rms > 0.01, no pulse overflow, F0 identical between
-     the modes, waveforms within (a)'s gates; each mode's wall and
-     realtime factor; LongHarvest's wall split into device stages,
-     downloads and the host contour; host syncs per chunk; zc, refine and
-     OLA launches counted from 0; peak device memory within the first
-     150 s run's peak plus the input and F0 bytes that grow, plus 5%);
+     (b) the 600 s recording, sequential and parallel=True in turns, their
+     chunk steps (and the prescan's) replayed from captured CUDA graphs,
+     each loop's own (finite, rms > 0.01, no pulse overflow, F0 identical
+     between the modes, waveforms within (a)'s gates; each mode's wall and
+     realtime factor, and the memory reserved after it; LongHarvest's wall
+     split into device stages, downloads and the host contour; the
+     synthesis loops alone eager and replayed in turns, y bit-equal,
+     launches equal but the capture's eager step, the replayed loop's
+     peak reserved memory within the eager loop's plus three eager step
+     working sets and 256 MiB and the second replayed loop's within the
+     first's, with the pool each capture reserved; one replayed chunk step
+     profiled (its device trace shows the OLA kernel once); host syncs of
+     each loop (replayed: at most the flags' read after the last replay);
+     zc, refine and OLA launches counted from 0; peak device memory within
+     the first 150 s run's peak plus the input and table bytes that grow,
+     plus 5%);
      (c) OLA on one parallel group's [8, Pmax, fft] and zc and refine on
      two LongHarvest windows [2, 220,500] against their plain versions at
      phase 4's tolerances;
@@ -157,7 +173,12 @@ Phases (any failure raises, so the exit code is not 0):
      (walls, LongHarvest's split, peaks; F0 against phase 9's float32
      LongHarvest: voicing agreement >= 0.97, median |dF0| < 0.05 Hz;
      parallel against sequential: F0 identical, windowed q99 < 1e-3 and
-     q90 < 0.1), the OLA kernel's double instantiation on a chunk and a
+     q90 < 0.1), the synthesis loops alone eager and replayed in turns (y
+     bit-equal, launches equal, host syncs, peak reserved memory gated as
+     in phase 9), one replayed float64 chunk step profiled (its device
+     trace shows the OLA kernel's double instantiation once and the
+     sequential cumulative sum as often as an eager step launches it),
+     the OLA kernel's double instantiation on a chunk and a
      parallel group (1e-12 relative) and the sequential cumulative sum of
      one chunk step (each launch equal to numpy.cumsum) against their plain
      versions, and the first 150 s sequential (wall, realtime factor, the
@@ -199,9 +220,13 @@ wrapper-inclusive time (``call_ms``), its plain version's, its bound and
 what bounds it, the share bound/ms, and the library call's device time
 (null where no single PyTorch call computes the function), and its
 launches in one pass of phase 8's corpus stream (``launches_corpus``), in
-phase 9's first sequential 600 s run (``launches_long``), in one grid-2
-batch of phase 10(a) (``launches_grid2``) and in phase 10(b)'s float64
-150 s run (``launches_f64_long``), and per gloo rank of phase 11 in one
+phase 9's 600 s recording, counted in eager calls (LongHarvest's zc and
+refine in the first sequential run, OLA in the eager sequential synthesis
+loop: ``launches_long``; a replay's counts are bookkeeping, and a profiled
+replayed chunk step's device trace is gated instead), in one grid-2
+batch of phase 10(a) (``launches_grid2``) and in phase 10(b)'s eager
+float64 sequential synthesis loop over the 58.52 s cut
+(``launches_f64_long``), and per gloo rank of phase 11 in one
 (2, 2) batch and its float64 copy-synthesis (``launches_mesh``, a list by
 rank); the line above it gives the whole script's wall.  The two contour
 kernels (contour_merge, contour_smooth) have no TPU kernel behind them:
@@ -1277,6 +1302,42 @@ def main(argv=None):
         f"equal to the main path's (before pitch scaling): {same}")
     if bool(viol.any()) or not same:
         raise AssertionError("HarvestKernel disagrees with the main path")
+    # compute_batch replays HarvestKernel.forward's captured program from
+    # its second call on: against the eager program, walls in turns
+    def hk_eager():
+        with torch.no_grad():
+            f, _ = PG.eager(H._forward, (x,), geo=hk.geo, grid=1)
+        return f.cpu().numpy().astype(np.float64)
+
+    def hk_replayed():
+        return np.stack([r[0] for r in hk.compute_batch(x)])
+
+    _build.launches.clear()
+    f_e = hk_eager()
+    e_counts = dict(_build.launches)
+    hk_replayed()                       # the second call: captures
+    _build.launches.clear()
+    f_r = hk_replayed()
+    r_counts = dict(_build.launches)
+    same_hk = np.array_equal(f_r, f_e) and np.array_equal(
+        f_r, np.stack([r[0] for r in hres]))
+    hk_turns = {"eager": [], "replayed": []}
+    for mode in ("eager", "replayed", "replayed", "eager"):
+        hk_turns[mode].append(round(wall_ms(
+            torch, hk_eager if mode == "eager" else hk_replayed, 5), 3))
+    t0 = time.perf_counter()
+    hk.compute_batch(x, check_capacity=True)
+    c_ms = (time.perf_counter() - t0) * 1000
+    log(f"HarvestKernel.compute_batch replayed (its forward a captured "
+        f"program): F0 bit-equal to the eager program's and to the first "
+        f"call's {same_hk}; launches of the eager program {e_counts}, of a "
+        f"replayed call {r_counts}; walls in turns (eager, replayed, "
+        f"replayed, eager), medians of 5: eager {hk_turns['eager']} ms, "
+        f"replayed {hk_turns['replayed']} ms; replayed with check_capacity "
+        f"{c_ms:.1f} ms (the first call, eager, {h_ms:.1f} ms)  [{card}]")
+    if not same_hk or e_counts != r_counts or any(
+            r_counts.get(k, 0) != 1 for k in HARVEST_KERNELS):
+        raise AssertionError("the replayed HarvestKernel.forward")
     # one long utterance (the batch's audio end to end, past the 8192
     # frames where CPU input takes the host chain): the card keeps the
     # device contour chain
@@ -1286,9 +1347,10 @@ def main(argv=None):
     zc_kernel.layout_launches.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    held_gb = torch.cuda.memory_allocated() / 2 ** 30
     l_ms = []
-    for _ in range(2):          # the first call at a new geometry is cold
+    # the first call at a new geometry is cold and eager; the second runs
+    # eagerly again, captures and replays; the third replays
+    for _ in range(3):
         t0 = time.perf_counter()
         f0_long, _ = hk_long.compute(x_long)
         l_ms.append((time.perf_counter() - t0) * 1000)
@@ -1296,7 +1358,8 @@ def main(argv=None):
     voiced_long = float((f0_long > 0).mean())
     log(f"HarvestKernel.compute, one {x_long.shape[0] / FS:.2f} s utterance "
         f"({hk_long.geo.f0_length} frames of 1 ms): first call "
-        f"{l_ms[0]:.1f} ms, second {l_ms[1]:.1f} ms, peak device memory "
+        f"{l_ms[0]:.1f} ms, second (captures) {l_ms[1]:.1f} ms, third "
+        f"(replayed) {l_ms[2]:.1f} ms, peak device memory "
         f"{peak_gb:.2f} GiB, voiced {voiced_long:.3f}, launches "
         f"{dict(_build.launches)}, zc event layout "
         f"{dict(zc_kernel.layout_launches)} (e_max {hk_long.geo.e_max})  "
@@ -1307,20 +1370,30 @@ def main(argv=None):
                 "wt_extend", "wt_contour_merge", "wt_contour_smooth"))
             or set(zc_kernel.layout_launches) != {"global"}):
         raise AssertionError("long-utterance Harvest on the card")
-    # the same call with the chain's plain versions (the dense [B, R, F]
-    # channels and the blocked-matmul smoothing that the kernels replace)
+    # the eager program with the contour kernels, and with the chain's
+    # plain versions (the dense [B, R, F] channels and the blocked-matmul
+    # smoothing that the kernels replace): a replay would run no Python
+    def long_eager():
+        with torch.no_grad():
+            PG.eager(H._forward, (x_long[None],), geo=hk_long.geo, grid=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            PG.eager(H._forward, (x_long[None],), geo=hk_long.geo, grid=1)
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 2 ** 30
+    peak_gb = long_eager()
     real_cm, real_cs = CK.contour_merge, CK.contour_smooth
     CK.contour_merge = CK.contour_merge_plain
     CK.contour_smooth = CK.contour_smooth_plain
     try:
-        hk_long.compute(x_long)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        hk_long.compute(x_long)
-        peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak_plain = long_eager()
     finally:
         CK.contour_merge, CK.contour_smooth = real_cm, real_cs
-    log(f"HarvestKernel.compute, the {x_long.shape[0] / FS:.2f} s utterance: "
+    log(f"HarvestKernel.forward's eager program, the "
+        f"{x_long.shape[0] / FS:.2f} s utterance: "
         f"peak device memory {peak_gb:.4f} GiB with the contour kernels, "
         f"{peak_plain:.4f} GiB with the chain's plain versions (gate: no "
         f"higher); {held_gb:.4f} GiB of it held by earlier phases, so the "
@@ -1605,17 +1678,54 @@ def main(argv=None):
     # card-vs-CPU gates of phase 5)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    f0_l64, _ = hk_long.compute(x_long, dtype=f64)
-    l64_ms = (time.perf_counter() - t0) * 1000
+    l64_ms = []
+    for _ in range(2):          # the first call makes the FFT plans
+        t0 = time.perf_counter()
+        f0_l64, _ = hk_long.compute(x_long, dtype=f64)
+        l64_ms.append((time.perf_counter() - t0) * 1000)
     peak64 = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the float64 device stages between the host mean and the download:
+    # their host syncs (CUDA sync debug mode, gate 0; after a first call,
+    # which uploads a new geometry's band tables to their device cache)
+    # and device calls
+    def f64_stages(xs, geo64):
+        with torch.no_grad():
+            y64 = H.decimate_stage(xs.to(f64)[None], ratio=geo64.ratio,
+                                   y_length=geo64.y_length)
+            m64 = H.int_trunc_mean(y64)
+            H._stages_f64(y64, m64, geo64)
+            _, n = count_syncs(torch, lambda: H._stages_f64(y64, m64,
+                                                            geo64))
+            t0 = time.perf_counter()
+            H._stages_f64(y64, m64, geo64)
+            torch.cuda.synchronize()
+        S_ = geo64.max_candidates
+        cap = min(S_, max(32, S_ // 2))
+        calls = -(-geo64.f0_length // max(1, H.REFINE_F64_PAIRS // cap))
+        return n, calls, (time.perf_counter() - t0) * 1000
+
+    geo22 = H.HarvestGeometry(fs22, len(x22), f0_floor=40.0)
+    stage_syncs = {
+        "t22": f64_stages(torch.as_tensor(x22, device=dev), geo22),
+        f"{x_long.shape[0] / FS:.2f} s": f64_stages(x_long, hk_long.geo)}
+    log("float64 Harvest's device stages (candidates, refine, prune; "
+        "after the host mean, before the download): "
+        + "; ".join(f"{k}: {n} host syncs (gate 0), {c} refine calls, "
+                    f"{ms:.1f} ms" for k, (n, c, ms)
+                    in stage_syncs.items())
+        + f"; refine {H.REFINE_F64_PAIRS} pairs a call  [{card}]")
+    if any(v[0] for v in stage_syncs.values()):
+        raise AssertionError("the float64 device stages synchronize the "
+                             "host")
     v32, v64 = f0_long > 0, f0_l64 > 0
     agree64 = float((v32 == v64).mean())
     both64 = v32 & v64
     rmse64 = float(np.sqrt(np.mean((f0_long[both64] - f0_l64[both64]) ** 2)))
     log(f"HarvestKernel.compute(dtype=torch.float64), the same "
-        f"{x_long.shape[0] / FS:.2f} s utterance: {l64_ms:.1f} ms (one "
-        f"call), peak device memory {peak64:.2f} GiB; against its float32 "
+        f"{x_long.shape[0] / FS:.2f} s utterance: {l64_ms[0]:.1f} ms the "
+        f"first call, {l64_ms[1]:.1f} ms the second, peak device memory "
+        f"{peak64:.2f} GiB; against its float32 "
         f"F0 on the card: voicing agreement {agree64:.4f} (gate 0.97), F0 "
         f"RMSE on voiced {rmse64:.4f} Hz (gate 1), max |dF0| "
         f"{float(np.abs(f0_long[both64] - f0_l64[both64]).max()):.3f} Hz  "
@@ -2045,6 +2155,8 @@ C_ENTRY = {"zc": "wt_zc", "refine": "wt_refine_sums", "ola": "wt_ola",
            "contour_smooth": "wt_contour_smooth"}
 MAIN_KERNELS = ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend",
                 "wt_contour_merge", "wt_contour_smooth")
+# the kernels of HarvestKernel.forward (the main path's but OLA)
+HARVEST_KERNELS = tuple(k for k in MAIN_KERNELS if k != "wt_ola")
 CORPUS_UTTS = 16          # bench.py config 5: 2 x its batch of 8
 
 # float32 codec, card against CPU on the same input: the float32
@@ -2249,26 +2361,45 @@ def corpus_stream(torch, dev, card):
         T1 = max(b.x.shape[1] for b in listed)
         xs = [np.pad(b.x, ((0, 0), (0, T1 - b.x.shape[1]))) for b in listed]
         hk = H.HarvestKernel(FS, T1, f0_floor=40.0, device=dev)
-        want = [r for xb in xs for r in hk.compute_batch(xb)]
+
+        def eager_batches():
+            # HarvestKernel.forward's program, outside the graph cache
+            with torch.no_grad():
+                return [PG.eager(H._forward, (torch.tensor(
+                    xb, device=dev),), geo=hk.geo, grid=1)[0].cpu().numpy()
+                    for xb in xs]
+
+        _build.launches.clear()
+        f_e = eager_batches()
+        e_counts = dict(_build.launches)
+        want = [r for xb in xs for r in hk.compute_batch(xb)]  # captures
+        _build.launches.clear()
         got = list(hk.compute_corpus(iter(xs)))
+        r_counts = dict(_build.launches)
         same = len(got) == len(want) and all(
             np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
             for a, b in zip(got, want))
-        hw = {"compute_corpus": [], "compute_batch": []}
-        for mode in ("compute_corpus", "compute_batch") * 2:
+        same_e = np.array_equal(np.stack([r[0] for r in got]),
+                                np.concatenate(f_e).astype(np.float64))
+        hw = {"compute_corpus": [], "compute_batch": [], "eager": []}
+        for mode in ("eager", "compute_corpus", "compute_batch") * 2:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if mode == "compute_corpus":
                 list(hk.compute_corpus(iter(xs)))
-            else:
+            elif mode == "compute_batch":
                 [hk.compute_batch(xb) for xb in xs]
+            else:
+                eager_batches()
             hw[mode].append(round((time.perf_counter() - t0) * 1000, 1))
         log(f"HarvestKernel on the corpus's {len(xs)} batches padded to "
-            f"T={T1}: compute_corpus F0 equal to compute_batch's bit for "
-            f"bit {same}; walls in turns {hw} ms  [{card}]")
-        if not same:
+            f"T={T1}, replayed: compute_corpus F0 equal to compute_batch's "
+            f"bit for bit {same}, to the eager program's {same_e}; "
+            f"launches of the eager program {e_counts}, of the replayed "
+            f"compute_corpus {r_counts}; walls in turns {hw} ms  [{card}]")
+        if not same or not same_e or e_counts != r_counts:
             raise AssertionError("compute_corpus disagrees with "
-                                 "compute_batch")
+                                 "compute_batch or the eager program")
     return counts
 
 
@@ -2455,6 +2586,39 @@ LONG_F0_RMSE, LONG_F0_MAX = 0.1, 5.0
 REC_VOICING, REC_F0_MEDIAN = 0.99, 0.01
 TEST_SIGNAL_S = 60.0
 MEM_MARGIN = 0.05
+# reserved memory of a replayed loop: its programs' pool holds one step's
+# intermediates laid out by a pool that starts empty, so with more
+# fragmentation than the eager loop's warm cache (1.1-2.5 eager working
+# sets measured on the H100): at most RESERVE_POOL of them, and the
+# allocator's rounding (2 MiB a large segment) within RESERVE_SLACK
+RESERVE_POOL, RESERVE_SLACK = 3, 256 << 20
+
+
+def n_steps(p, parallel):
+    """Chunk steps a synthesis loop over plan p runs."""
+    from worldtpu_torch.longaudio import PARALLEL_GROUP
+    return -(-p.n_chunks // PARALLEL_GROUP) if parallel else p.n_chunks
+
+
+def capture_counts(eager, steps):
+    """The launches of a loop that captures its step, from an eager loop's
+    over ``steps`` equal steps: one eager step more (the run a capture
+    makes before it records; the replays count what it recorded)."""
+    return {k: v + v // steps for k, v in eager.items()}
+
+
+def reserve_limit(eager, work):
+    """The bound of a replayed loop's peak reserved memory: the eager
+    loops' peak plus RESERVE_POOL eager step working sets (its programs'
+    pool) and RESERVE_SLACK."""
+    return max(eager) + RESERVE_POOL * work + RESERVE_SLACK
+
+
+def reserve_ok(replayed, limit):
+    """Each replayed loop's peak within limit, and the second within the
+    first's + RESERVE_SLACK (programs do not accumulate)."""
+    return (max(replayed) <= limit
+            and replayed[1] <= replayed[0] + RESERVE_SLACK)
 
 
 def long_recording(seconds):
@@ -2511,7 +2675,9 @@ def long_audio(torch, dev, card, cycles_per_ms):
     host syncs per chunk, the kernels' launches and the bounded device
     memory against the first BOUND_S s; (c) the OLA, zc and refine kernels
     against their plain versions at this path's shapes.  Returns the
-    launches of the first sequential LONG_S s run (from 0), and for phase
+    launches of the LONG_S s recording's eager calls (LongHarvest's zc and
+    refine in its first sequential run, OLA in the eager sequential
+    synthesis loop; from 0), and for phase
     10 the parity cut x60, its float32 LongHarvest F0 and the first
     BOUND_S s x150."""
     from worldtpu_torch import _build
@@ -2520,6 +2686,7 @@ def long_audio(torch, dev, card, cycles_per_ms):
     from worldtpu_torch.analysis.cheaptrick import cheaptrick_frames
     from worldtpu_torch.analysis.d4c import d4c_frames
     from worldtpu_torch.ops import ola_kernel, refine_kernel, zc_kernel
+    from worldtpu_torch.parallel import graphs as PG
     from worldtpu_torch.synthesis import noise as N
     from worldtpu_torch.synthesis import synthesis as S
 
@@ -2653,10 +2820,11 @@ def long_audio(torch, dev, card, cycles_per_ms):
         yu = yu[0].cpu().numpy()
         idx, _, n_p, _, _, _ = S._time_base(f0t, FS, p.fp_s, p.out_length,
                                             FS / fft + 1.0, mp)
-        carries, _, _ = LA._phase_prescan(p, dev)
+        carries, _, _ = LA._phase_prescan(p, dev, PG.eager)
         pos = []
         for k in range(p.n_chunks):
-            pul = LA._pulse_table(p, k, k + 1, carries[k:k + 1])
+            pul = LA._pulse_table(p, torch.tensor([k], device=dev),
+                                  carries[k:k + 1])
             pos.append((k * p.L + pul["idx"][0])[pul["own"][0]])
         pos = torch.cat(pos)
         n_p = int(n_p[0])
@@ -2667,7 +2835,7 @@ def long_audio(torch, dev, card, cycles_per_ms):
         s_err = a_err = 0.0
         for k0 in range(0, p.n_chunks, LA.PARALLEL_GROUP):
             k1 = min(k0 + LA.PARALLEL_GROUP, p.n_chunks)
-            sb, ab = LA._analysis(p, k0, k1)
+            sb, ab = LA._analysis(p, torch.arange(k0, k1, device=dev))
             for g, k in enumerate(range(k0, k1)):
                 fr = torch.arange(p.flo[k], min(p.flo[k] + p.Fb, F),
                                   device=dev)
@@ -2712,25 +2880,29 @@ def long_audio(torch, dev, card, cycles_per_ms):
         LA.overlap_add = real_ola
 
     # ---- (b) the whole recording ----
+    # the synthesis loops replay captured chunk programs (and the prescan's
+    # step) from a loop's second step on: each loop captures its own and
+    # drops them at its end
     def run(x, parallel):
         peak_reset()
         t0 = time.perf_counter()
         y, f0 = lp.copy_synthesis(x, parallel=parallel, **syn)
         return y, f0, time.perf_counter() - t0, \
-            torch.cuda.max_memory_allocated()
+            torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
 
     x150 = rec[:BOUND_S * FS]
     peak150 = {}
     for par in (False, True):
-        _, _, w, peak150[par] = run(x150, par)
+        _, _, w, peak150[par], rsv = run(x150, par)
         log(f"(b) {BOUND_S} s, {'parallel' if par else 'sequential'}: wall "
-            f"{w:.2f} s, peak device memory {gib(peak150[par]):.3f} GiB")
+            f"{w:.2f} s, peak device memory {gib(peak150[par]):.3f} GiB, "
+            f"reserved after the call {gib(rsv):.3f} GiB")
     walls = {False: [], True: []}
-    peaks, outs, counts = {}, {}, {}
-    for i, par in enumerate((False, True, True, False)):
+    peaks, outs, counts, reserved = {}, {}, {False: [], True: []}, {}
+    for par in (False, True, True, False):
         _build.launches.clear()
-        y, f0, w, pk = run(rec, par)
-        counts.setdefault(par, dict(_build.launches))
+        y, f0, w, pk, reserved[par] = run(rec, par)
+        counts[par].append(dict(_build.launches))
         walls[par].append(w)
         peaks[par] = max(peaks.get(par, 0), pk)
         outs.setdefault(par, (y, f0))
@@ -2743,10 +2915,13 @@ def long_audio(torch, dev, card, cycles_per_ms):
     n_hb = -(-n_h // 16)
     for par, name in ((False, "sequential"), (True, "parallel")):
         med = statistics.median(walls[par])
-        log(f"(b) {LONG_S} s, {name}: walls {[round(v, 2) for v in walls[par]]}"
-            f" s, median {med:.2f} s = {LONG_S / med:.1f}x realtime; peak "
-            f"device memory {gib(peaks[par]):.3f} GiB; launches "
-            f"{counts[par]}  [{card}]")
+        log(f"(b) {LONG_S} s, {name} (replayed): walls "
+            f"{[round(v, 2) for v in walls[par]]} s (each captures its "
+            f"loop's programs), median {med:.2f} s = {LONG_S / med:.1f}x "
+            f"realtime; peak device memory {gib(peaks[par]):.3f} GiB, "
+            f"reserved after the call {gib(reserved[par]):.3f} GiB; "
+            f"launches (bookkeeping in the replays), first run "
+            f"{counts[par][0]}, second {counts[par][1]}  [{card}]")
     log(f"(b) {LONG_S} s: output {len(ys)} samples ({len(ys) / FS:.1f} s), "
         f"rms {rms:.4f}, voiced {float((f0s6 > 0).mean()):.3f}; "
         f"{n_h} Harvest chunks in {n_hb} batches, {p6.n_chunks} synthesis "
@@ -2758,22 +2933,145 @@ def long_audio(torch, dev, card, cycles_per_ms):
             or not np.array_equal(f0s6, f0p6) or len(ys) != p6.out_length
             or q99b >= PARITY_Q99 or q90b >= WINDOW_Q90):
         raise AssertionError(f"{LONG_S} s long audio")
+    # a run's launches: LongHarvest's zc and refine once a batch, OLA once
+    # a chunk (sequential) or a group (parallel), and once more for the
+    # step program the run captures (the eager call a capture makes before
+    # it records, parallel/graphs.py)
     want = {False: {"wt_zc": n_hb, "wt_refine_sums": n_hb,
-                    "wt_ola": p6.n_chunks},
+                    "wt_ola": p6.n_chunks + 1},
             True: {"wt_zc": n_hb, "wt_refine_sums": n_hb,
-                   "wt_ola": -(-p6.n_chunks // LA.PARALLEL_GROUP)}}
+                   "wt_ola": -(-p6.n_chunks // LA.PARALLEL_GROUP) + 1}}
     for par in (False, True):
-        for k, v in want[par].items():
-            if counts[par].get(k, 0) != v:
-                raise AssertionError(f"{k}: {counts[par].get(k, 0)} launches "
-                                     f"in the {LONG_S} s run, not {v}")
+        for c in counts[par]:
+            for k, v in want[par].items():
+                if c.get(k, 0) != v:
+                    raise AssertionError(f"{k}: {c.get(k, 0)} launches in "
+                                         f"the {LONG_S} s run, not {v}")
+
+    # the synthesis loops alone on the recording's plan: eager and
+    # replayed in turns, outputs bit-equal, launches equal; each replayed
+    # loop captures into a cache of its own (as copy_synthesis does), so
+    # its reserved memory holds its programs: gated against the eager
+    # loop's plus RESERVE_POOL eager step working sets and RESERVE_SLACK,
+    # and the second replayed loop's against the first's (no program
+    # outlives its loop)
+    key = N.as_key(LONG_SEED)
+    loop_walls, loop_same, loop_counts = {}, {}, {}
+    for par, name in ((False, "sequential"), (True, "parallel")):
+        loop = lp._parallel if par else lp._sequential
+        w, ys_ = {"eager": [], "replayed": []}, {}
+        rsv, held = {"eager": [], "replayed": []}, []
+        for mode in ("eager", "replayed", "replayed", "eager"):
+            _build.launches.clear()
+            progs = PG.Programs(shared_pool=True)
+            peak_reset()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                yl, _ = loop(p6, key, call=PG.eager if mode == "eager"
+                             else progs.call)
+            w[mode].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            rsv[mode].append(torch.cuda.max_memory_reserved())
+            if mode == "eager":
+                work = torch.cuda.max_memory_allocated() - base
+            else:
+                held = [(k[0].__name__, b)
+                        for k, b in zip(progs.keys(), progs.held())]
+            progs.clear()
+            loop_counts[(par, mode)] = dict(_build.launches)
+            ys_.setdefault(mode, yl)
+        loop_walls[par] = w
+        r_limit = reserve_limit(rsv["eager"], work)
+        log(f"(b) {LONG_S} s synthesis loop, {name}: peak reserved device "
+            f"memory eager {[round(gib(b), 3) for b in rsv['eager']]} GiB, "
+            f"replayed {[round(gib(b), 3) for b in rsv['replayed']]} GiB "
+            f"with its programs alive ("
+            + ", ".join(f"{nm} {gib(b):.3f} GiB" for nm, b in held)
+            + f" the pool each capture reserved, one shared pool); limit: "
+            f"eager + {RESERVE_POOL} x one eager step's working set "
+            f"{gib(work):.3f} GiB + {RESERVE_SLACK >> 20} MiB = "
+            f"{gib(r_limit):.3f} GiB, the second replayed loop within the "
+            f"first's + {RESERVE_SLACK >> 20} MiB  [{card}]")
+        if not reserve_ok(rsv["replayed"], r_limit):
+            raise AssertionError(f"the replayed {name} loop's programs "
+                                 f"hold more than their bound")
+        loop_same[par] = (np.array_equal(ys_["eager"], ys_["replayed"])
+                          and np.array_equal(ys_["eager"][:p6.out_length]
+                                             .astype(np.float32),
+                                             outs[par][0]))
+        log(f"(b) {LONG_S} s synthesis loop, {name}, eager and replayed in "
+            f"turns: eager {[round(v, 3) for v in w['eager']]} s, replayed "
+            f"{[round(v, 3) for v in w['replayed']]} s (medians "
+            f"{statistics.median(w['eager']):.3f} / "
+            f"{statistics.median(w['replayed']):.3f} s, "
+            f"{1e3 * statistics.median(w['replayed']) / p6.n_chunks:.2f} ms "
+            f"a chunk replayed); y bit-equal to the eager loop's and to the "
+            f"replayed copy_synthesis {loop_same[par]}; launches eager "
+            f"{loop_counts[(par, 'eager')]}, replayed "
+            f"{loop_counts[(par, 'replayed')]} (gate: eager + one eager "
+            f"step's, the capture's)  [{card}]")
+        if (not loop_same[par] or loop_counts[(par, "replayed")]
+                != capture_counts(loop_counts[(par, "eager")],
+                                  n_steps(p6, par))):
+            raise AssertionError(f"the replayed {name} synthesis loop")
+
+    # one replayed chunk step under the profiler, and its parts alone
+    # (CUDA events): where a replay's device time goes
+    key_t = N.key_tensor(key, dev)
+    ks = torch.arange(p6.n_chunks, device=dev)
+    progs = PG.Programs(shared_pool=True)
+    with torch.no_grad():
+        c_, o_, _ = LA._phase_prescan(p6, dev)
+        k_ = slice(p6.n_chunks // 2, p6.n_chunks // 2 + 1)
+
+        def step():
+            return progs.call(LA._step_program, (ks[k_], c_[k_], o_[k_],
+                                                 key_t),
+                              dtypes=LA._DTYPES, plan=p6)
+
+        for _ in range(3):              # replayed by the third call
+            step()
+        s_wall, s_acts, _ = stage_profile(torch, step)
+        progs.clear()
+        part_ms = {
+            "the noise rows (indexed_noise)": median_ms(
+                torch, lambda: N.indexed_noise(key_t, o_[k_], p6.Pmax,
+                                               p6.fft), 5),
+            "the block analysis (CheapTrick + D4C)": median_ms(
+                torch, lambda: LA._analysis(p6, ks[k_]), 5),
+            "the pulse table": median_ms(
+                torch, lambda: LA._pulse_table(p6, ks[k_], c_[k_]), 5)}
+    s_busy = sum(a[1] for a in s_acts)
+    by_kernel = collections.Counter()
+    for _, ms, nm in s_acts:
+        by_kernel[nm] += ms
+    log(f"(b) one replayed chunk step ({LONG_CHUNK_FRAMES} frames, Pmax "
+        f"{p6.Pmax}), profiled: wall {s_wall:.2f} ms, device busy "
+        f"{s_busy:.2f} ms, {len(s_acts)} device activities; its parts "
+        f"alone (CUDA events, eager): "
+        + ", ".join(f"{k_} {v:.2f} ms" for k_, v in part_ms.items())
+        + f"  [{card}]")
+    for nm, ms in by_kernel.most_common(5):
+        log(f"  device {ms:8.3f} ms  {nm[:100]}")
+    # a replay's launch counts are what its capture recorded: the device
+    # trace shows that the replayed step really ran the OLA kernel
+    s_tr = traced_kernels(s_acts)
+    log(f"(b) our kernels in the replayed chunk step's device trace: {s_tr} "
+        f"(gate: wt_ola once, no other)")
+    if s_tr["wt_ola"] != 1 or any(v for k, v in s_tr.items()
+                                  if k != "wt_ola"):
+        raise AssertionError("the replayed chunk step's device trace does "
+                             "not show the OLA kernel once")
+    del c_, o_, ks
 
     # bounded memory: the bytes that grow with the recording are the input
-    # (LongHarvest's padded copy and the pipeline's) and the F0 tables
+    # (LongHarvest's padded copy and the plan's, which the chunk programs
+    # read in place) and the F0 tables
     def grow(x):
         pl = lp.plan(x, f0s6[:1 + int(1000 * len(x) / FS / 5.0)], DUR)
         return nbytes(pl.x_dev, pl.f0_dev, pl.cf0_dev, pl.cvuv_dev,
-                      pl.o0_dev, pl.flo_dev, pl.tpos_dev,
+                      pl.flo_dev, pl.a0_dev, pl.tpos_dev,
                       lh._windows(x, torch.float32)[0])
     extra = grow(rec) - grow(x150)
     for par, name in ((False, "sequential"), (True, "parallel")):
@@ -2781,7 +3079,8 @@ def long_audio(torch, dev, card, cycles_per_ms):
         log(f"(b) bounded memory, {name}: peak {gib(peaks[par]):.3f} GiB at "
             f"{LONG_S} s against {gib(peak150[par]):.3f} GiB at {BOUND_S} s "
             f"+ {extra / 1e6:.1f} MB of input and F0 tables, + "
-            f"{100 * MEM_MARGIN:.0f}%: limit {gib(limit):.3f} GiB")
+            f"{100 * MEM_MARGIN:.0f}%: limit {gib(limit):.3f} GiB (each "
+            f"run's programs alive during it)")
         if peaks[par] > limit:
             raise AssertionError(f"device memory grows with the recording "
                                  f"({name})")
@@ -2814,14 +3113,27 @@ def long_audio(torch, dev, card, cycles_per_ms):
                     for k, vs in split.items())
         + f"  [{card}]")
 
-    # host syncs of the synthesis loops (CUDA sync debug mode)
-    key = N.as_key(LONG_SEED)
+    # host syncs of the synthesis loops (CUDA sync debug mode): the
+    # replayed loops read their overflow flags once, after the last replay
     with torch.no_grad():
-        _, n_seq = count_syncs(torch, lambda: lp._sequential(p6, key))
-        _, n_par = count_syncs(torch, lambda: lp._parallel(p6, key))
+        syncs = {}
+        for par in (False, True):
+            loop = lp._parallel if par else lp._sequential
+            syncs[(par, "eager")] = count_syncs(
+                torch, lambda: loop(p6, key, call=PG.eager))[1]
+            progs = PG.Programs(shared_pool=True)
+            loop(p6, key, call=progs.call)          # captures its programs
+            syncs[(par, "replayed")] = count_syncs(
+                torch, lambda: loop(p6, key, call=progs.call))[1]
+            progs.clear()
     log(f"(b) host syncs of the synthesis loop over {p6.n_chunks} chunks: "
-        f"sequential {n_seq} ({n_seq / p6.n_chunks:.3f} per chunk), "
-        f"parallel {n_par} ({n_par / p6.n_chunks:.3f} per chunk)")
+        + ", ".join(f"{'parallel' if par else 'sequential'} {mode} {n}"
+                    for (par, mode), n in syncs.items())
+        + " (gate: replayed, every step a replay of programs captured by "
+          "a loop before, at most 1: the flags' read after the last "
+          "replay)")
+    if syncs[(False, "replayed")] > 1 or syncs[(True, "replayed")] > 1:
+        raise AssertionError("the replayed synthesis loop syncs the host")
     del p6
 
     # ---- (c) kernels against their plain versions at this path's shapes
@@ -2893,7 +3205,13 @@ def long_audio(torch, dev, card, cycles_per_ms):
         raise AssertionError("zc or refine disagrees with its plain version "
                              "at the long-audio shapes")
     log(f"phase 9 wall: {time.perf_counter() - t_phase:.1f} s")
-    return counts[False], dict(x60=x60, f0_x60=f0c, x150=x150)
+    # the kernels line's launches come from eager calls (a replay's are
+    # bookkeeping): LongHarvest's zc and refine in the first sequential
+    # run, OLA in the eager sequential loop over the recording's chunks
+    long_counts = {k: counts[False][0].get(k, 0)
+                   for k in ("wt_zc", "wt_refine_sums")}
+    long_counts["wt_ola"] = loop_counts[(False, "eager")].get("wt_ola", 0)
+    return long_counts, dict(x60=x60, f0_x60=f0c, x150=x150)
 
 
 # ---- phase 10 ----
@@ -3104,11 +3422,12 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
     the OLA kernel's double instantiation and the sequential cumulative
     sum at the chunk shapes against their plain versions; x150 sequential
     (wall, realtime factor, bounded memory).  Returns the launches of the
-    x150 run (from 0)."""
+    eager sequential synthesis loop over x60's chunks (from 0)."""
     from worldtpu_torch import _build
     from worldtpu_torch import longaudio as LA
     from worldtpu_torch.analysis import longform as LF
     from worldtpu_torch.ops import ola_kernel, seqsum
+    from worldtpu_torch.parallel import graphs as PG
     from worldtpu_torch.synthesis import noise as N
 
     t_phase = time.perf_counter()
@@ -3147,8 +3466,7 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
         f"{LF.MAX_BATCH[torch.float32]})  [{card}]")
 
     # the cut through the pipeline, both modes; LongHarvest timed in its
-    # parts (its stages synchronized at their end: float64's refine loop
-    # waits on the host every 16 frames anyway, so no download overlaps
+    # parts (its stages synchronized at their end, so no download overlaps
     # them), the OLA launches of the first chunk and of the first parallel
     # group kept for the kernel checks
     lp.copy_synthesis(x60[:12 * FS], **syn)          # warm-up: plans
@@ -3248,6 +3566,73 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
             or not np.isfinite(ys).all() or rms < 0.01):
         raise AssertionError("float64 long audio on the card")
 
+    # the synthesis loops alone on the cut's plan: eager and replayed in
+    # turns (float64 steps: wt_seq_cumsum_f64 and wt_ola_f64 on the
+    # device), outputs bit-equal, launches equal, host syncs
+    # (each replayed loop's programs in a cache of its own, as
+    # copy_synthesis keeps them; reserved memory gated as in phase 9)
+    key = N.as_key(LONG_SEED)
+    pl60 = lp.plan(x60, f0s, DUR, f64)
+    for par, name in ((False, "sequential"), (True, "parallel")):
+        loop = lp._parallel if par else lp._sequential
+        w, ys_, cs = {"eager": [], "replayed": []}, {}, {}
+        rsv, held = {"eager": [], "replayed": []}, []
+        for mode in ("eager", "replayed", "replayed", "eager"):
+            _build.launches.clear()
+            progs = PG.Programs(shared_pool=True)
+            base = peak_reset()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                yl, _ = loop(pl60, key, call=PG.eager if mode == "eager"
+                             else progs.call)
+            w[mode].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            rsv[mode].append(torch.cuda.max_memory_reserved())
+            if mode == "eager":
+                work = torch.cuda.max_memory_allocated() - base
+            else:
+                held = [(k_[0].__name__, b)
+                        for k_, b in zip(progs.keys(), progs.held())]
+            progs.clear()
+            cs[mode] = dict(_build.launches)
+            ys_.setdefault(mode, yl)
+        if not par:
+            f64_counts = cs["eager"]
+        with torch.no_grad():
+            progs = PG.Programs(shared_pool=True)
+            loop(pl60, key, call=progs.call)        # captures its programs
+            _, n_sync = count_syncs(torch,
+                                    lambda: loop(pl60, key, call=progs.call))
+            progs.clear()
+        same = (np.array_equal(ys_["eager"], ys_["replayed"])
+                and np.array_equal(ys_["eager"][:pl60.out_length],
+                                   out[par][0]))
+        r_limit = reserve_limit(rsv["eager"], work)
+        log(f"(b) float64 synthesis loop, {dur:.2f} s, {name}, eager and "
+            f"replayed in turns: eager {[round(v, 3) for v in w['eager']]} "
+            f"s, replayed {[round(v, 3) for v in w['replayed']]} s "
+            f"({pl60.n_chunks} chunks); y bit-equal to the eager loop's and "
+            f"to the replayed copy_synthesis {same}; launches eager "
+            f"{cs['eager']}, replayed {cs['replayed']} (gate: eager + one "
+            f"eager step's, the capture's); host syncs of a "
+            f"replayed loop {n_sync} (gate: at most 1, the flags' read after "
+            f"the last replay); peak reserved device memory eager "
+            f"{[round(gib(b), 3) for b in rsv['eager']]} GiB, replayed "
+            f"{[round(gib(b), 3) for b in rsv['replayed']]} GiB ("
+            + ", ".join(f"{nm} {gib(b):.3f} GiB" for nm, b in held)
+            + f" the pool each capture reserved), limit {gib(r_limit):.3f} "
+            f"GiB (eager + {RESERVE_POOL} x one eager step's working set "
+            f"{gib(work):.3f} GiB + {RESERVE_SLACK >> 20} MiB; the second "
+            f"replayed loop within the first's + {RESERVE_SLACK >> 20} MiB)"
+            f"  [{card}]")
+        if (not same or n_sync > 1
+                or not reserve_ok(rsv["replayed"], r_limit)
+                or cs["replayed"] != capture_counts(cs["eager"],
+                                                    n_steps(pl60, par))):
+            raise AssertionError(f"the replayed float64 {name} synthesis "
+                                 f"loop")
+    del pl60
+
     # ---- OLA double and the sequential cumsum at the chunk shapes ----
     with torch.no_grad():
         lines = []
@@ -3270,8 +3655,8 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
         k = p.n_chunks // 2
         carries, ords, _ = LA._phase_prescan(p, dev)
         _, c_seen = capture(_build, lambda: LA._chunk_step(
-            p, k, k + 1, carries[k:k + 1], ords[k:k + 1],
-            N.as_key(LONG_SEED)))
+            p, torch.tensor([k], device=dev), carries[k:k + 1],
+            ords[k:k + 1], N.as_key(LONG_SEED)))
         torch.cuda.synchronize()
         c_seen = [c for c in c_seen if c[0] == "wt_seq_cumsum_f64"]
         shapes = []
@@ -3289,6 +3674,34 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
                                  seqsum.cumsum_sequential_cuda(xs_t))
         c_ms = device_ms(torch, cycles_per_ms, replayer(
             torch, _build, _build.library(), [big]), 20)
+        # one replayed float64 chunk step (the same chunk) under the
+        # profiler: a replay's launch counts are what its capture recorded,
+        # the device trace shows the kernels it really ran
+        progs = PG.Programs(shared_pool=True)
+        key_t = N.key_tensor(key, dev)
+        ks = torch.tensor([k], device=dev)
+
+        def step():
+            return progs.call(LA._step_program, (ks, carries[k:k + 1],
+                                                 ords[k:k + 1], key_t),
+                              dtypes=LA._DTYPES, plan=p)
+        for _ in range(3):              # replayed by the third call
+            step()
+        f_wall, f_acts, _ = stage_profile(torch, step)
+        progs.clear()
+    f_tr = {nm: sum(1 for a in f_acts if re.search(pat, a[2]))
+            for nm, pat in (("wt_ola_f64", r"ola_kernel<double>"),
+                            ("wt_seq_cumsum_f64",
+                             r"(?<!\w)seq_cumsum_kernel\b"))}
+    f_busy = sum(a[1] for a in f_acts)
+    log(f"(b) one replayed float64 chunk step, profiled: wall {f_wall:.2f} "
+        f"ms, device busy {f_busy:.2f} ms, {len(f_acts)} device activities;"
+        f" in its device trace {f_tr} (gate: wt_ola_f64 once, "
+        f"wt_seq_cumsum_f64 {len(c_seen)} times, an eager step's launches)"
+        f"  [{card}]")
+    if f_tr["wt_ola_f64"] != 1 or f_tr["wt_seq_cumsum_f64"] != len(c_seen):
+        raise AssertionError("the replayed float64 chunk step's device "
+                             "trace does not show its kernels")
     log("(b) OLA double at the float64 chunk shapes (a chunk, a parallel "
         "group): " + "; ".join(lines) + f"  [{card}]")
     log(f"(b) seq_cumsum: {len(c_seen)} launches of one float64 chunk step, "
@@ -3298,13 +3711,15 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
     if len(c_seen) < 2 or not plain_same:
         raise AssertionError("the sequential cumulative sum at the float64 "
                              "chunk shapes")
-    del ola_seen, p, carries, ords, c_seen, big, xs_t
+    del ola_seen, p, carries, ords, c_seen, big, xs_t, ks, key_t
 
     # ---- the first 150 s, sequential: bounded memory ----
     def grow(x, f0):
+        # the plan's tables (the chunk programs read them in place) and
+        # LongHarvest's padded copy
         pl = lp.plan(x, f0, DUR, f64)
         return nbytes(pl.x_dev, pl.f0_dev, pl.cf0_dev, pl.cvuv_dev,
-                      pl.o0_dev, pl.flo_dev, pl.tpos_dev,
+                      pl.flo_dev, pl.a0_dev, pl.tpos_dev,
                       lh._windows(x, f64)[0])
 
     _build.launches.clear()
@@ -3333,17 +3748,18 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
         f"{n_h} Harvest windows in {-(-n_h // m64)} batches, "
         f"{p150.n_chunks} synthesis chunks of Pmax {p150.Pmax} pulse slots "
         f"({p60.Pmax} at {dur:.2f} s: the bound follows the highest F0); "
-        f"launches {counts}; "
+        f"launches {counts} (one more OLA than chunks: the eager step of "
+        f"the loop's capture; replays counted as recorded); "
         f"{len(x150) / FS:.0f} s and not {LONG_S} s: float64 runs at a few "
         f"times realtime  [{card}]")
     if (peak150 > limit or not np.isfinite(y150).all()
             or len(y150) != p150.out_length
-            or counts.get("wt_ola_f64", 0) != p150.n_chunks
+            or counts.get("wt_ola_f64", 0) != p150.n_chunks + 1
             or counts.get("wt_seq_cumsum_f64", 0) < p150.n_chunks
             or any(k_ in counts for k_ in MAIN_KERNELS)):
         raise AssertionError("float64 long audio, bounded memory")
     log(f"phase 10(b) wall: {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return f64_counts
 
 
 # ---- phase 11 ----
@@ -3408,9 +3824,9 @@ def pulse_spy(LA, sink):
     to restore."""
     real = LA._pulse_table
 
-    def spy(p, k0, k1, carry):
-        pul = real(p, k0, k1, carry)
-        pos = p.o0_dev[k0:k1, None] + pul["idx"]
+    def spy(p, k, carry):
+        pul = real(p, k, carry)
+        pos = (k * p.L)[:, None] + pul["idx"]
         sink.append(pos[pul["own"]].cpu())
         return pul
 
@@ -3604,6 +4020,8 @@ def mesh_phase(torch, dev, card, x, noise, kw, x60):
     from worldtpu_torch.analysis import harvest as H
     from worldtpu_torch.parallel import batch as PB
     from worldtpu_torch.parallel import distributed as PD
+    from worldtpu_torch.parallel import graphs as PG
+    from worldtpu_torch.synthesis import noise as N
     from worldtpu_torch.synthesis import synthesis as S
     t_phase = time.perf_counter()
     with torch.no_grad():
@@ -3800,10 +4218,15 @@ def mesh_phase(torch, dev, card, x, noise, kw, x60):
                          harvest_chunk_ms=HARVEST_CHUNK_MS,
                          harvest_halo_ms=HARVEST_HALO_MS, device=dev)
     syn = dict(seed=LONG_SEED, pitch_scale=PITCH, duration_scale=DUR)
+    ys, f0s = lp.copy_synthesis(x60, **syn)
+    # the sequential run's pulses, from its eager loop (a replay runs no
+    # Python to spy on)
     pulses = []
     real = pulse_spy(LA, pulses)
     try:
-        ys, f0s = lp.copy_synthesis(x60, **syn)
+        with torch.no_grad():
+            lp._sequential(lp.plan(x60, f0s, DUR), N.as_key(LONG_SEED),
+                           call=PG.eager)
     finally:
         LA._pulse_table = real
     yp, _ = lp.copy_synthesis(x60, parallel=True, **syn)

@@ -512,9 +512,9 @@ def test_graph_cache_evicts_least_recently_used(monkeypatch):
         events.append(("eager", tag, float(scale)))
         return ("eager",)
 
-    monkeypatch.setattr(TG, "capturable", lambda tensors: True)
-    monkeypatch.setattr(TG, "_capture",
-                        lambda fn, tensors, scale, static: Prog(static["tag"]))
+    monkeypatch.setattr(TG, "capturable", lambda tensors, dtypes: True)
+    monkeypatch.setattr(TG, "_capture", lambda fn, tensors, scale, static,
+                        pool: Prog(static["tag"]))
     x = torch.zeros(3)
     try:
         assert TG.call(fn, (x,), 1.0, tag=0) == ("eager",)
@@ -535,9 +535,20 @@ def test_graph_cache_evicts_least_recently_used(monkeypatch):
     assert TG.programs() == []
 
 
-def test_cpu_tensors_never_reach_the_graph_cache():
-    """batch_wav_to_wav and batch_analyze on CPU tensors run eagerly every
-    time: nothing is recorded in the cache."""
+def test_cpu_tensors_never_reach_the_graph_cache(monkeypatch):
+    """batch_wav_to_wav and batch_analyze, HarvestKernel.forward and
+    LongPipeline's sequential and parallel loops (their chunk and prescan
+    steps, float32 and float64) on CPU tensors run eagerly every time:
+    nothing is recorded in the global cache nor in the loops' own caches
+    (each checked as the loop drops it)."""
+    from worldtpu_torch import longaudio as TLA
+    dropped = []
+    real_clear = TG.Programs.clear
+
+    def clear(self):
+        dropped.append((self.keys(), list(self._warm)))
+        real_clear(self)
+    monkeypatch.setattr(TG.Programs, "clear", clear)
     from worldtpu_torch.analysis.cheaptrick import CheapTrickKernel
     TG.clear()
     fs = 16000
@@ -545,12 +556,24 @@ def test_cpu_tensors_never_reach_the_graph_cache():
                      dtype=torch.float32)
     geo = TH.HarvestGeometry(fs, 4800, f0_floor=71.0)
     ck = CheapTrickKernel(fs)
+    hk = TH.HarvestKernel(fs, 4800, f0_floor=71.0, device="cpu")
     for _ in range(3):
         TB.batch_analyze(x, geo=geo, fs=fs, fft_size=ck.fft_size,
                          max_half_window=ck.max_half_window, pitch_scale=1.1)
+        hk(x)
+    lp = TLA.LongPipeline(fs, f0_floor=71.0, chunk_frames=20, device="cpu")
+    f0 = np.full(61, 140.0)
+    lp.harvest.compute = lambda x_, dtype=None: (f0, None)
+    for dt in (torch.float32, torch.float64):
+        for parallel in (False, True):
+            y, _ = lp.copy_synthesis(x[0].to(dt), dtype=dt,
+                                     parallel=parallel)
+            assert np.isfinite(y).all()
+    assert dropped[-4:] == [([], [])] * 4
     assert TG.programs() == [] and len(TG._warm) == 0
     assert not TG.capturable((x,))
     assert not TG.capturable((x.double(),))
+    assert not TG.capturable((x.double(),), TLA._DTYPES)
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,8 @@ PyTorch version on the same CUDA inputs, and the main path's launches.
 Marked ``cuda``; without a CUDA device every test skips.  Run them on a
 GPU machine with ``python -m pytest tests/test_torch_cuda.py -q``."""
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,8 @@ from worldtpu_torch.ops import refine_kernel as TR
 from worldtpu_torch.ops import seqsum as TQ
 from worldtpu_torch.ops import zc_kernel as TZ
 from worldtpu_torch.parallel import batch as TB
+from worldtpu_torch.parallel import graphs as TG
+from worldtpu_torch.synthesis import noise as TN
 from worldtpu_torch.synthesis import synthesis as TS
 
 pytestmark = pytest.mark.cuda
@@ -730,7 +734,10 @@ def test_long_pipeline_on_card_matches_cpu(dev):
     yg, f0g = lpg.copy_synthesis(x, **syn)
     counts = dict(_build.launches)
     assert counts["wt_zc"] == counts["wt_refine_sums"] == 1
-    assert counts["wt_ola"] == -(-len(yg) // int(round(400 * 0.00625 * fs)))
+    # one launch a chunk, and one more: the eager call before the step's
+    # capture (parallel/graphs.py; each call captures its own)
+    assert counts["wt_ola"] == 1 + -(-len(yg) // int(round(400 * 0.00625
+                                                          * fs)))
     fg, tp = lpg.harvest.compute(x)
     fc, _ = lpc.harvest.compute(x)
     np.testing.assert_array_equal(fg * 1.2, f0g)
@@ -856,7 +863,8 @@ def test_long_pipeline_f64_on_card_matches_cpu(dev):
     yg, f0g = lpg.copy_synthesis(x, **syn)
     counts = dict(_build.launches)
     n_chunks = -(-len(yg) // int(round(400 * 0.00625 * fs)))
-    assert counts["wt_ola_f64"] == n_chunks
+    # and the eager call before the step's capture
+    assert counts["wt_ola_f64"] == n_chunks + 1
     assert counts["wt_seq_cumsum_f64"] >= n_chunks
     assert not any(k in counts for k in ("wt_zc", "wt_refine_sums",
                                          "wt_ola", "wt_extend"))
@@ -877,3 +885,122 @@ def test_long_pipeline_f64_on_card_matches_cpu(dev):
     yp, f0p = lpg.copy_synthesis(x, parallel=True, **syn)
     np.testing.assert_array_equal(f0p, f0g)
     assert np.quantile(_windowed_rel(yp, yg, fs), 0.99) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the captured programs: replays against eager calls
+# ---------------------------------------------------------------------------
+
+def test_harvest_forward_replays_equal_eager(dev):
+    """HarvestKernel.forward on float32 CUDA input: the first call eager,
+    the second captured and replayed, later calls replayed; every F0 equal
+    to the eager program's bit for bit, and a replay's launches equal to
+    an eager call's.  compute_batch and compute_corpus go through it."""
+    fs = 22050
+    x = torch.tensor(_vowels(fs, 2), device=dev)
+    hk = TH.HarvestKernel(fs, x.shape[1], f0_floor=40.0, device=dev)
+    TG.clear()
+    want, tpos = TG.eager(TH._forward, (x,), geo=hk.geo, grid=1)
+    for i in range(4):
+        _build.launches.clear()
+        f0, tp = hk(x)
+        if i == 0:
+            eager_counts = dict(_build.launches)
+        if i >= 2:
+            assert dict(_build.launches) == eager_counts
+        assert torch.equal(f0, want) and torch.equal(tp, tpos)
+    assert len(TG.programs()) == 1
+    got = hk.compute_batch(x.cpu().numpy())
+    np.testing.assert_array_equal(np.stack([r[0] for r in got]),
+                                  want.cpu().numpy().astype(np.float64))
+    TG.clear()
+
+
+def _plan_on(dev, dtype, seconds=4.0):
+    fs = 16000
+    x = _long_utterance(fs, seconds, seed=3)
+    if dtype == torch.float64:
+        x = x.astype(np.float64)
+    lp = TLA.LongPipeline(fs, f0_floor=40.0, chunk_frames=200, device=dev)
+    t = np.arange(1 + int(1000 * len(x) / fs / 5.0)) * 0.005
+    f0 = 170 * 2 ** ((40 / 1200) * np.sin(2 * np.pi * 0.35 * t))
+    f0[(t > 1.5) & (t < 1.8)] = 0.0
+    return lp, lp.plan(x, f0 * 1.2, 1.25, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("parallel", [False, True], ids=["seq", "par"])
+def test_long_pipeline_replays_equal_eager(dev, dtype, parallel,
+                                           monkeypatch):
+    """LongPipeline's synthesis loops with the chunk step (and the
+    prescan step) replayed equal the same loops run eagerly bit for bit,
+    in both dtypes, the parallel mode's padded last group included, with
+    a loop's own cache (dropped at its end) and with a cache kept across
+    loops (then every step of the later loops replays); such a loop makes
+    no host sync between its first replay and its last; a replay's
+    launches are an eager step's."""
+    monkeypatch.setattr(TLA, "PARALLEL_GROUP", 3)
+    lp, p = _plan_on(dev, dtype)
+    assert p.n_chunks % 3 != 0 and p.n_chunks > 3
+    key = TN.as_key(5)
+    loop = lp._parallel if parallel else lp._sequential
+    TG.clear()
+    _build.launches.clear()
+    y_e, ovf_e = loop(p, key, call=TG.eager)
+    eager_counts = dict(_build.launches)
+    y_o, ovf_o = loop(p, key)
+    assert np.array_equal(y_o, y_e) and torch.equal(ovf_o, ovf_e)
+    progs = TG.Programs(shared_pool=True)
+    for i in range(3):
+        _build.launches.clear()
+        y_r, ovf_r = loop(p, key, call=progs.call)
+        if i == 2:
+            assert dict(_build.launches) == eager_counts
+        assert np.array_equal(y_r, y_e) and torch.equal(ovf_r, ovf_e)
+    assert len(progs.keys()) == (2 if parallel else 1)
+    assert TG.programs() == []
+    # every program captured: the loop syncs once, after its last replay,
+    # to read its overflow flags
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            loop(p, key, call=progs.call)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught) == 1
+    progs.clear()
+
+
+def test_f64_stages_on_card_make_no_sync(dev):
+    """The float64 Harvest stages (candidates, refine, prune) on the card
+    under CUDA sync debug mode 'error': no synchronising call; their
+    refined candidates against the CPU's within 1e-9 relative."""
+    from worldtpu_torch.io import wav
+    import pathlib
+    x, fs, _ = wav.wavread(pathlib.Path(__file__).parent / "fixtures"
+                           / "t22.wav")
+    x = np.asarray(x[:int(0.36 * fs)], np.float64)
+    geo = TH.HarvestGeometry(fs, len(x), f0_floor=40.0)
+    out = {}
+    for d in ("cpu", dev):
+        y = TH.decimate_stage(torch.tensor(x, device=d)[None],
+                              ratio=geo.ratio, y_length=geo.y_length)
+        mean = torch.zeros(1, dtype=torch.float64, device=d)
+        TH._stages_f64(y, mean, geo)                # warms the caches
+        if d != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            cand, score = TH._stages_f64(y, mean, geo)
+        finally:
+            if d != "cpu":
+                torch.cuda.set_sync_debug_mode("default")
+        out[str(d)] = cand.cpu().numpy()
+    c, g = out["cpu"], out[str(dev)]
+    np.testing.assert_array_equal(c > 0, g > 0)
+    assert (c > 0).sum() > 100
+    np.testing.assert_allclose(g, c, rtol=1e-9)

@@ -158,7 +158,7 @@ def _chunked_pulses(lp, x, f0, duration_scale):
     assert not bool(ovf.any())
     cols = [[], [], [], []]
     for k in range(p.n_chunks):
-        pul = TLA._pulse_table(p, k, k + 1, carries[k:k + 1])
+        pul = TLA._pulse_table(p, torch.tensor([k]), carries[k:k + 1])
         own = pul["own"][0]
         n_own = int(pul["n_own"][0])
         assert bool(own[:n_own].all()) and not bool(own[n_own:].any())
@@ -288,7 +288,7 @@ def test_chunked_analysis_equals_unchunked(utterance):
     compared = 0
     for k0 in range(0, p.n_chunks, 2):
         k1 = min(k0 + 2, p.n_chunks)
-        spec, ap = TLA._analysis(p, k0, k1)
+        spec, ap = TLA._analysis(p, torch.arange(k0, k1))
         for g, k in enumerate(range(k0, k1)):
             lo = p.flo[k]
             fr = np.arange(lo, min(lo + p.Fb, F))

@@ -131,7 +131,7 @@ def test_f64_chunked_pulses_equal_jax_timebase(utterance, chunk_frames):
     jc = jnp.zeros((), jnp.uint32)
     n_pulses = 0
     for k in range(p.n_chunks):
-        tb = TLA._timebase_core(p, k, k + 1, carry)
+        tb = TLA._timebase_core(p, torch.tensor([k]), carry)
         flo = p.flo[k]
         jt = JLA._timebase_core(
             jnp.asarray(f0_pad[flo:flo + p.Fb]), k * p.L,
@@ -233,7 +233,7 @@ def test_f64_chunked_analysis_equals_unchunked(utterance):
     compared = 0
     for k0 in range(0, p.n_chunks, 2):
         k1 = min(k0 + 2, p.n_chunks)
-        spec, ap = TLA._analysis(p, k0, k1)
+        spec, ap = TLA._analysis(p, torch.arange(k0, k1))
         for g, k in enumerate(range(k0, k1)):
             lo = p.flo[k]
             fr = np.arange(lo, min(lo + p.Fb, F))

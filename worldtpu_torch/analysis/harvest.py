@@ -37,6 +37,7 @@ from worldtpu_torch.ops import zc_kernel as _zc
 from worldtpu_torch.ops.fftutil import get_suitable_fft_size
 from worldtpu_torch.ops.interp import interp1
 from worldtpu_torch.ops.numeric import device_cache, matlab_round, rdiv
+from worldtpu_torch.parallel import graphs as _graphs
 
 #: near-duplicate candidate tolerance of the production refine
 #: (worldtpu.analysis.harvest.REFINE_DEDUP_TOL)
@@ -371,15 +372,23 @@ def _band_candidates_f64(f, bounds, geo, tpos):
                        torch.zeros((), dtype=f.dtype, device=f.device))
 
 
+@device_cache(maxsize=16)
+def _band_tables(geo, dtype, device):
+    """The bands' boundary frequencies [Nb] (dtype) and filter half
+    lengths [Nb] (int64) on device."""
+    halves = [_matlab_round_py(geo.actual_fs / b * 2.0)
+              for b in geo.boundary_f0]
+    return (torch.as_tensor(geo.boundary_f0, dtype=dtype, device=device),
+            torch.as_tensor(halves, device=device))
+
+
 def _raw_candidates_f64(ym, geo, tpos):
     """Raw band candidates [B, Nb, F] of the mean-removed decimated signal
     ym [B, L] by the circular-FFT route, bands in chunks."""
     B = ym.shape[0]
     dt, dev = ym.dtype, ym.device
     y_spectrum = torch.fft.rfft(Fn.pad(ym, (0, geo.fft_size - geo.y_length)))
-    bounds = torch.as_tensor(geo.boundary_f0, dtype=dt, device=dev)
-    halves = torch.as_tensor([_matlab_round_py(geo.actual_fs / b * 2.0)
-                              for b in geo.boundary_f0], device=dev)
+    bounds, halves = _band_tables(geo, dt, dev)
     parts = []
     for lo in range(0, geo.n_channels, _F64_BAND_CHUNK):
         bc, hc = (v[lo:lo + _F64_BAND_CHUNK] for v in (bounds, halves))
@@ -413,15 +422,18 @@ def candidates_stage(y, mean_y, geo):
 # stage D, float64: the dense refine twin
 # ---------------------------------------------------------------------------
 
-def _refine_pairs_f64(y, f0, pp, geo):
-    """Refine (frame, candidate) pairs of one utterance: y [L], candidate
-    frequencies f0 [P] > 0 at frame times pp [P] -> (refined [P], score
-    [P]), zeros where the result is out of range or scores under 2.5.
-    Reference refineF0Candidates / getMeanF0 / fixF0, the literal per-pair
-    layout: each pair's own windows and two full FFTs of geo.refine_fft."""
+def _refine_pairs_f64(y, rows, f0, pp, geo):
+    """Refine (frame, candidate) pairs: y [B, L], each pair's utterance
+    rows [P], candidate frequencies f0 [P] at frame times pp [P] ->
+    (refined [P], score [P]), zeros where the result is out of range or
+    scores under 2.5, and where f0 is 0 (an empty lane: it is refined at a
+    stand-in 100 Hz, as the JAX twin does, and dropped).  Reference
+    refineF0Candidates / getMeanF0 / fixF0, the literal per-pair layout:
+    each pair's own windows and two full FFTs of geo.refine_fft."""
     dt, dev = y.dtype, y.device
-    P = f0.shape[0]
     fs_a = geo.actual_fs
+    live = f0 > 0.0
+    f0 = torch.where(live, f0, torch.full((), 100.0, dtype=dt, device=dev))
     hw = (rdiv(1.5 * fs_a, f0) + 1.0).to(torch.int32)
     w_len = 2 * hw + 1
     fft_index = 2 + (torch.log(w_len.to(dt)) / C.LOG2).to(torch.int32)
@@ -448,7 +460,7 @@ def _refine_pairs_f64(y, f0, pp, geo):
     mw_m1 = Fn.pad(mw[:, :-1], (1, 0))
     mw_p1 = Fn.pad(mw[:, 1:], (0, 1))
     dw = torch.where(in_w, -(mw_p1 - mw_m1) / 2.0, zero)
-    seg = y[(base_index - 1).clamp(0, geo.y_length - 1).long()]
+    seg = y[rows[:, None], (base_index - 1).clamp(0, geo.y_length - 1).long()]
     Sm = torch.fft.rfft(seg * mw, n=geo.refine_fft)
     Sd = torch.fft.rfft(seg * dw, n=geo.refine_fft)
     Sm_re, Sm_im = Sm.real.gather(1, gbin), Sm.imag.gather(1, gbin)
@@ -468,34 +480,63 @@ def _refine_pairs_f64(y, f0, pp, geo):
                      / f0[:, None] * hmask, dim=1)
     score = rdiv(1.0, dev_ / n_harm.clamp(min=1) + C.MY_SAFE_GUARD_MINIMUM)
     bad = ((refined < geo.f0_floor) | (refined > geo.f0_ceil)
-           | (score < 2.5))
+           | (score < 2.5) | ~live)
     return torch.where(bad, zero, refined), torch.where(bad, zero, score)
 
 
-def refine_stage_f64(y, cand, tpos, *, geo, chunk=16):
+#: (frame, candidate) pairs that one call of the float64 refine takes
+#: (frames per call: this over the capacity).  At geo.refine_fft = 2048
+#: (f0_floor 40 Hz) a call holds two spectra [pairs, 1,025] complex128,
+#: 2 x 2^15 x 1,025 x 16 B = 1.07 GB, and some ten [pairs, Wmax = 603]
+#: windows of 8 B, ~158 MB each
+REFINE_F64_PAIRS = 2 ** 15
+
+
+def refine_stage_f64(y, cand, tpos, *, geo, chunk=None):
     """Stage D, float64 parity form: y [B, L], cand [B, F, S], tpos [F] ->
-    (refined, score) [B, F, S] in the candidates' own slots.  Of each frame
-    the first min(S, max(32, S // 2)) nonzero candidates are refined (the
-    JAX twin's compaction; more than that were never seen: a frame has ~20)
-    and the rest give zero.  The pairs of ``chunk`` frames at a time bound
-    the [pairs, refine_fft] spectra."""
+    (refined, score) [B, F, S] in the candidates' own slots.
+
+    The JAX twin's static compaction (worldtpu/analysis/harvest.py
+    refine_stage): each frame's nonzero candidates are ranked by a cumsum
+    and their slots scattered into cap = min(S, max(32, S // 2)) lanes (a
+    frame has ~20; the rest give zero), every lane of ``chunk`` frames at a
+    time is refined (an empty lane is the identity (0, 0)), and the lanes
+    are scattered back with a max from -1.  The number of calls follows
+    the shapes alone: no host read.  ``chunk`` (frames per call) defaults
+    to REFINE_F64_PAIRS pairs a call."""
     B, F, S = cand.shape
+    dev = cand.device
     cap = min(S, max(32, S // 2))
     active = cand > 0.0
-    active = active & (torch.cumsum(active, dim=2) <= cap)
-    ref = torch.zeros_like(cand)
-    sc = torch.zeros_like(cand)
-    for b in range(B):
-        for lo in range(0, F, chunk):
-            a = active[b, lo:lo + chunk]
-            fi, si = torch.nonzero(a, as_tuple=True)
-            if fi.numel() == 0:
-                continue
-            r, s_ = _refine_pairs_f64(y[b], cand[b, lo:lo + chunk][a],
-                                      tpos[lo + fi], geo)
-            ref[b, lo + fi, si] = r
-            sc[b, lo + fi, si] = s_
-    return ref, sc
+    n_seen = torch.cumsum(active, dim=2)
+    cols = torch.arange(S, device=dev).expand(B, F, S)
+    # unique scatter slots: active -> rank (< S), inactive -> S + rank
+    # among the inactive; only the first cap lanes are read
+    slot = torch.where(active, n_seen - 1, S + cols - n_seen)
+    sel = torch.zeros((B, F, 2 * S), dtype=torch.int64, device=dev)
+    sel = sel.scatter_(2, slot, cols)[..., :cap]
+    valid = (torch.arange(cap, device=dev)
+             < n_seen[..., -1:].clamp(max=cap))
+    zero = torch.zeros((), dtype=cand.dtype, device=dev)
+    lanes = torch.where(valid, cand.gather(2, sel), zero).reshape(B * F, cap)
+    pos = tpos.expand(B, F).reshape(B * F)
+    utt = torch.arange(B, device=dev).repeat_interleave(F)
+    chunk = max(1, REFINE_F64_PAIRS // cap) if chunk is None else chunk
+    ref, sc = [], []
+    for lo in range(0, B * F, chunk):
+        c = lanes[lo:lo + chunk]
+        n = c.shape[0]
+        r, s_ = _refine_pairs_f64(
+            y, utt[lo:lo + n].repeat_interleave(cap), c.reshape(-1),
+            pos[lo:lo + n].repeat_interleave(cap), geo)
+        ref.append(r)
+        sc.append(s_)
+
+    def back(v):
+        v = torch.where(valid, torch.cat(v).reshape(B, F, cap), -1.0)
+        return torch.zeros_like(cand).scatter_reduce_(
+            2, sel, v, "amax").clamp_(min=0.0)
+    return back(ref), back(sc)
 
 
 # ---------------------------------------------------------------------------
@@ -714,14 +755,11 @@ class HarvestKernel(torch.nn.Module):
         self.device = None if device is None else torch.device(device)
 
     def forward(self, x):
-        """x [B, x_length] -> (f0 [B, n_out], tpos [n_out]), in x's dtype."""
-        n_out = self.geo.n_grid()
-        mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-        f0 = harvest_device_full(x, mean, geo=self.geo, n_out=n_out,
-                                 grid=self.grid_ms)
-        tpos = torch.arange(n_out, dtype=x.dtype, device=x.device) \
-            * (self.geo.frame_period / 1000.0)
-        return f0, tpos
+        """x [B, x_length] -> (f0 [B, n_out], tpos [n_out]), in x's dtype.
+        float32 on the card runs as a captured CUDA graph from the second
+        call of a shape on (``parallel.graphs``, keyed on the geometry by
+        identity and ``grid_ms``)."""
+        return _graphs.call(_forward, (x,), geo=self.geo, grid=self.grid_ms)
 
     def get_samples(self):
         return self.geo.n_grid()
@@ -789,11 +827,11 @@ class HarvestKernel(torch.nn.Module):
         On the card, batch k's F0 goes to pinned host memory by a
         non-blocking copy behind an event recorded right after its work,
         and only that event is waited on before k is read, so k's download
-        and unpacking overlap k+1's queued work (the contour chain syncs
-        the host inside each batch, so little of the device work overlaps
-        the host's).  float64 batches take ``harvest_parity`` one batch at
-        a time, as ``compute_batch`` does.  ``chunk`` and ``contour_on``
-        are absent, as in ``compute_batch``."""
+        and unpacking overlap k+1's queued work (each batch a replay of
+        ``forward``'s captured program from the second on).  float64
+        batches take ``harvest_parity`` one batch at a time, as
+        ``compute_batch`` does.  ``chunk`` and ``contour_on`` are absent,
+        as in ``compute_batch``."""
         check_dtype(dtype)
         check_grid(dtype, self.grid_ms)
         pending = None
@@ -843,6 +881,16 @@ class HarvestKernel(torch.nn.Module):
             f0s = f0.numpy().astype(np.float64)
             return [(f0s[i], tpos) for i in range(len(f0s))]
         return finish
+
+
+def _forward(x, *, geo, grid):
+    """HarvestKernel.forward's program: x [B, x_length] -> (f0, tpos)."""
+    n_out = geo.n_grid()
+    mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    f0 = harvest_device_full(x, mean, geo=geo, n_out=n_out, grid=grid)
+    tpos = torch.arange(n_out, dtype=x.dtype, device=x.device) \
+        * (geo.frame_period / 1000.0)
+    return f0, tpos
 
 
 def _narrow(t, transfer_dtype):

@@ -37,8 +37,7 @@ from worldtpu_torch.analysis.harvest import (
 #: float64: one such window takes 2.43 GiB on an H100 (the float64 pruning
 #: compares every pair of the 126 slots of its 10,001 frames) and a batch
 #: grows linearly with its windows, so 4 (9.72 GiB) stay near the float32
-#: batch's peak; the float64 refine loops over the windows one by one, so
-#: a larger batch would save little time
+#: batch's peak
 MAX_BATCH = {torch.float32: 16, torch.float64: 4}
 
 

@@ -42,10 +42,22 @@ same Q32 step and carried phase as float32 (not the unchunked float64
 synthesis' sequential double sum, so a knife-edge pulse can fall apart
 from the unchunked float64 path's, in ``worldtpu`` as here); the analysis
 is the parity path's CheapTrick and D4C on each block, the noise JAX's
-float64 rows, the overlap-add the OLA kernel's ``double`` instantiation.  The sequential mode keeps the carried phase and pulse ordinal on
-the device and never waits for the host inside its loop: chunk k+1 is
+float64 rows, the overlap-add the OLA kernel's ``double`` instantiation.
+
+The chunk step is one program, as JAX jits its ``_chunk_step``: the chunk
+index is an int64 tensor on the device (JAX's traced ``k``), the noise key
+too, so the step reads nothing from the host and one program serves every
+chunk of a recording.  On the card each loop replays the step's captured
+CUDA graph from its second call on (``parallel.graphs``; the prescan's
+step likewise).  The programs are keyed on the recording's plan, read its
+tables in place, share one memory pool and live as long as the loop: a
+``graphs.Programs`` cache of the loop's own, dropped at its end.  (JAX
+keys ``_chunks_map`` on the padded length, which a recording's plan fixes
+too.)  The sequential mode keeps the carried phase and pulse ordinal on the
+device and never waits for the host inside its loop: chunk k+1 is
 enqueued before chunk k's buffer, copied to pinned memory behind an event,
-is landed; the overflow flags are read once, at the end.
+is landed; the overflow flags are read once, at the end.  The mesh path
+runs eagerly.
 
 Memory: O(chunk) on the device (O(group) with ``parallel=True``), O(output)
 on the host.
@@ -53,6 +65,7 @@ on the host.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 
@@ -68,6 +81,7 @@ from worldtpu_torch.analysis.harvest import as_tensor, check_dtype
 from worldtpu_torch.analysis.longform import LongHarvest
 from worldtpu_torch.ops.interp import interp1
 from worldtpu_torch.ops.ola_kernel import overlap_add
+from worldtpu_torch.parallel import graphs as _graphs
 from worldtpu_torch.synthesis import noise as N
 from worldtpu_torch.synthesis import synthesis as S
 
@@ -86,9 +100,15 @@ def analysis_halo_samples(fs, f0_floor):
     return max(ct, d4c_max_half_c(fs), d4c_max_half_lt(fs)) + 8
 
 
-@dataclasses.dataclass
+#: the dtypes a chunk program is captured in (graphs.Programs.call)
+_DTYPES = (torch.float32, torch.float64)
+
+
+@dataclasses.dataclass(eq=False)
 class _Plan:
-    """One recording's chunk geometry and its tables on the device."""
+    """One recording's chunk geometry and its tables on the device.  A
+    captured chunk program is keyed on the plan itself (by identity) and
+    reads its tables in place."""
     fs: int
     fft: int
     max_half_window: int
@@ -110,7 +130,6 @@ class _Plan:
     cf0_dev: torch.Tensor    # [F_total + Fb + 1] time-base knots (+
     #                          extrapolated, then edge-padded)
     cvuv_dev: torch.Tensor   # [F_total + Fb + 1] their voicing (likewise)
-    o0_dev: torch.Tensor     # [n_chunks] int64 first output sample
     flo_dev: torch.Tensor    # [n_chunks] int64 flo on the device
     a0_dev: torch.Tensor     # [n_chunks] int64 a0 on the device
     tpos_dev: torch.Tensor   # [n_chunks, Fb] each block's frame times
@@ -173,7 +192,6 @@ def _plan(x, f0_np, *, fs, fft, max_half_window, halo, fp_a, fp_s,
     cvuv = torch.cat([cvuv, cvuv[-1:] * 2 - cvuv[-2:-1]])
     cf0 = torch.cat([cf0, cf0[-1:].expand(Fb)])
     cvuv = torch.cat([cvuv, cvuv[-1:].expand(Fb)])
-    o0_dev = torch.arange(n_chunks, dtype=torch.int64, device=device) * L
     flo_dev, a0_dev = (torch.as_tensor(np.asarray(v, np.int64),
                                        device=device) for v in (flo, a0))
     tpos_dev = torch.as_tensor(np.stack(tpos), device=device)
@@ -181,26 +199,26 @@ def _plan(x, f0_np, *, fs, fft, max_half_window, halo, fp_a, fp_s,
                  fp_s=fp_s, L=L, slack=slack, Fb=Fb, A=A, halo=halo,
                  Pmax=Pmax, F_total=F_total, out_length=out_length,
                  n_chunks=n_chunks, flo=flo, a0=a0, x_dev=x_dev,
-                 f0_dev=f0_dev, cf0_dev=cf0, cvuv_dev=cvuv, o0_dev=o0_dev,
-                 flo_dev=flo_dev, a0_dev=a0_dev, tpos_dev=tpos_dev)
+                 f0_dev=f0_dev, cf0_dev=cf0, cvuv_dev=cvuv, flo_dev=flo_dev,
+                 a0_dev=a0_dev, tpos_dev=tpos_dev)
 
 
-def _timebase_core(p, k0, k1, carry):
-    """Q32 pulse detection for chunks k0..k1-1 as rows (reference
-    :180-288 with carried phase), carry [G] int64: the phase bits at the
-    sample before each chunk.  float32: the unchunked _time_base's formula
-    on GLOBAL sample indices (global times, the global knot lookup and the
-    appended knot), so the pulses are the unchunked ones.  float64:
-    ``worldtpu``'s float64 chunk step, block-local times and interp1 over
-    the block's Fb + 1 knots."""
+def _timebase_core(p, k, carry):
+    """Q32 pulse detection for chunks k [G] (int64, on the device) as rows
+    (reference :180-288 with carried phase), carry [G] int64: the phase
+    bits at the sample before each chunk.  float32: the unchunked
+    _time_base's formula on GLOBAL sample indices (global times, the
+    global knot lookup and the appended knot), so the pulses are the
+    unchunked ones.  float64: ``worldtpu``'s float64 chunk step,
+    block-local times and interp1 over the block's Fb + 1 knots."""
     dt = p.cf0_dev.dtype
     dev = carry.device
     n = p.L + p.slack
-    G = k1 - k0
-    o0 = p.o0_dev[k0:k1]
+    G = k.shape[0]
+    o0 = k * p.L
     s = torch.arange(n, device=dev)
     if dt == torch.float64:
-        flo = p.flo_dev[k0:k1, None]
+        flo = p.flo_dev[k][:, None]
         knots = flo + torch.arange(p.Fb + 1, device=dev)       # [G, Fb+1]
         coarse_t = (torch.arange(p.Fb + 1, dtype=dt, device=dev)
                     * p.fp_s).expand(G, -1)
@@ -209,12 +227,12 @@ def _timebase_core(p, k0, k1, carry):
         vuvi = interp1(coarse_t, p.cvuv_dev[knots], t_loc)
     else:
         t = (o0[:, None] + s).to(dt) / p.fs
-        k = torch.clamp((t / p.fp_s).to(torch.int32) + 1, 1,
-                        p.F_total).long()
-        x0 = k.to(dt) * p.fp_s - p.fp_s
+        kn = torch.clamp((t / p.fp_s).to(torch.int32) + 1, 1,
+                         p.F_total).long()
+        x0 = kn.to(dt) * p.fp_s - p.fp_s
         sf = (t - x0) / p.fp_s
-        f0_lo, f0_hi = p.cf0_dev[k - 1], p.cf0_dev[k]
-        v_lo, v_hi = p.cvuv_dev[k - 1], p.cvuv_dev[k]
+        f0_lo, f0_hi = p.cf0_dev[kn - 1], p.cf0_dev[kn]
+        v_lo, v_hi = p.cvuv_dev[kn - 1], p.cvuv_dev[kn]
         f0i = f0_lo + sf * (f0_hi - f0_lo)
         vuvi = v_lo + sf * (v_hi - v_lo)
     vuvi = (vuvi > 0.5).to(dt)
@@ -249,29 +267,40 @@ def _timebase_core(p, k0, k1, carry):
                 n_det=n_det, own=own, n_own=n_own, overflowed=overflowed)
 
 
-def _phase_prescan(p, dev):
+def _prescan_program(k, carry, ordn, *, plan):
+    """One prescan step, the program that _phase_prescan replays: chunks
+    k's time base alone -> (carry', ordinal', overflowed)."""
+    tb = _timebase_core(plan, k, carry)
+    return tb["carry_out"], ordn + tb["n_own"], tb["overflowed"]
+
+
+def _phase_prescan(p, dev, call=_graphs.eager):
     """Each chunk's entry state (Q32 carry, global pulse ordinal) and
     overflow flag, chunk by chunk on the device (the time base only): the
-    cheap sequential pass that makes the expensive chunks independent."""
+    cheap sequential pass that makes the expensive chunks independent.
+    Each step goes through ``call`` (a ``graphs.Programs`` cache's: on the
+    card a captured program from the second step on; graphs.eager:
+    eagerly)."""
     carry = torch.zeros(1, dtype=torch.int64, device=dev)
     ordn = torch.zeros(1, dtype=torch.int64, device=dev)
+    ks = torch.arange(p.n_chunks, device=dev)
     carries, ords, ovf = [], [], []
     for k in range(p.n_chunks):
-        tb = _timebase_core(p, k, k + 1, carry)
         carries.append(carry)
         ords.append(ordn)
-        ovf.append(tb["overflowed"])
-        carry, ordn = tb["carry_out"], ordn + tb["n_own"]
+        carry, ordn, o = call(_prescan_program, (ks[k:k + 1], carry, ordn),
+                              dtypes=_DTYPES, plan=p)
+        ovf.append(o)
     return torch.cat(carries), torch.cat(ords), torch.cat(ovf)
 
 
-def _pulse_table(p, k0, k1, carry):
-    """The pulses of chunks k0..k1-1 as rows [G, Pmax]: _timebase_core's
+def _pulse_table(p, k, carry):
+    """The pulses of chunks k [G] as rows [G, Pmax]: _timebase_core's
     (idx local, own, n_own, carry_out, overflowed) and each pulse's
     sub-sample shift, noise size, voicing and GLOBAL fractional frame
     position pt (the unchunked path's float ops, so floor/ceil/frac of
     the response's frames match bit for bit)."""
-    tb = _timebase_core(p, k0, k1, carry)
+    tb = _timebase_core(p, k, carry)
     idx, own, n_det = tb["idx"], tb["own"], tb["n_det"]
     dt = tb["vuvi"].dtype
     n = p.L + p.slack
@@ -285,21 +314,21 @@ def _pulse_table(p, k0, k1, carry):
     nxt = torch.minimum(torch.arange(p.Pmax, device=idx.device) + 1,
                         (n_det - 1)[:, None]).clamp(min=0)
     ns = torch.where(own, idx.gather(1, nxt) - idx, 0)
-    pt = (p.o0_dev[k0:k1, None] + idx).to(dt) / p.fs / p.fp_s
+    pt = ((k * p.L)[:, None] + idx).to(dt) / p.fs / p.fp_s
     return dict(idx=idx, own=own, n_own=tb["n_own"],
                 carry_out=tb["carry_out"], overflowed=tb["overflowed"],
                 shift=shift, ns=ns, vuv_at=vuv_at, pt=pt)
 
 
-def _analysis(p, k0, k1):
-    """Frame-blocked CheapTrick and D4C of chunks k0..k1-1 as rows:
+def _analysis(p, k):
+    """Frame-blocked CheapTrick and D4C of chunks k [G] as rows:
     (spectrogram, aperiodicity) [G, Fb, fft//2 + 1] of each block's frames
     (on the ANALYSIS period), from its audio slice."""
-    ks = range(k0, k1)
-    x_blk = torch.stack([p.x_dev[p.a0[k] + p.halo:p.a0[k] + p.halo + p.A]
-                         for k in ks])
-    f0_blk = torch.stack([p.f0_dev[p.flo[k]:p.flo[k] + p.Fb] for k in ks])
-    tpos_blk, a0 = p.tpos_dev[k0:k1], p.a0_dev[k0:k1]
+    dev = k.device
+    a0, flo = p.a0_dev[k], p.flo_dev[k]
+    x_blk = p.x_dev[(a0 + p.halo)[:, None] + torch.arange(p.A, device=dev)]
+    f0_blk = p.f0_dev[flo[:, None] + torch.arange(p.Fb, device=dev)]
+    tpos_blk = p.tpos_dev[k]
     spec = cheaptrick_frames(x_blk, f0_blk, tpos_blk, fs=p.fs,
                              fft_size=p.fft,
                              max_half_window=p.max_half_window,
@@ -309,21 +338,23 @@ def _analysis(p, k0, k1):
     return spec, ap
 
 
-def _chunk_step(p, k0, k1, carry, ord0, key):
-    """Chunks k0..k1-1 as rows: frame-blocked CheapTrick + D4C and the
-    carried synthesis.  Returns (buf [G, L + fft], carry', ord0',
-    overflowed [G]); buf[g, j] belongs at global output sample
-    k*L - fft//2 + 1 + j of its chunk k."""
+def _chunk_step(p, k, carry, ord0, key):
+    """Chunks k [G] (int64, on the device: JAX's traced chunk index) as
+    rows: frame-blocked CheapTrick + D4C and the carried synthesis.  key:
+    the noise key (a ``noise.key_tensor`` on the device, or host words).
+    Returns (buf [G, L + fft], carry', ord0', overflowed [G]); buf[g, j]
+    belongs at global output sample k*L - fft//2 + 1 + j of its chunk
+    k."""
     fs, fft = p.fs, p.fft
 
-    spec, ap = _analysis(p, k0, k1)
+    spec, ap = _analysis(p, k)
 
-    pul = _pulse_table(p, k0, k1, carry)
+    pul = _pulse_table(p, k, carry)
     noise = N.indexed_noise(key, ord0, p.Pmax, fft, dtype=spec.dtype)
     resp = S.pulse_responses(pul["pt"], pul["shift"], pul["ns"],
                              pul["vuv_at"], pul["own"], spec, ap, noise,
                              fs=fs, fft_size=fft,
-                             frame_offset=p.flo_dev[k0:k1])
+                             frame_offset=p.flo_dev[k])
 
     # ---- OLA into the local buffers (reference :118-139): a pulse at
     # local sample i writes [i - half + 1, i + half], and buffer position
@@ -332,6 +363,12 @@ def _chunk_step(p, k0, k1, carry, ord0, key):
     buf = overlap_add(resp.contiguous(), pul["idx"].to(torch.int32),
                       p.L + fft, pul["n_own"])
     return buf, pul["carry_out"], ord0 + pul["n_own"], pul["overflowed"]
+
+
+def _step_program(k, carry, ord0, key, *, plan):
+    """_chunk_step over the plan's tables: the program that the synthesis
+    loops replay."""
+    return _chunk_step(plan, k, carry, ord0, key)
 
 
 class LongPipeline:
@@ -397,7 +434,8 @@ class LongPipeline:
         alone, chunk by chunk, on the device) computes them for every
         chunk; the expensive chunks are then independent and run as rows
         of batched calls, PARALLEL_GROUP chunks at a time (one OLA launch
-        per group).  The pulses are those of the sequential mode by
+        per group; the last group filled up with repeats of the last
+        chunk, dropped).  The pulses are those of the sequential mode by
         construction (the prescan reuses _timebase_core).
 
         ``mesh`` (a ('data', 'time') mesh, ``parallel.batch.make_mesh``;
@@ -429,38 +467,62 @@ class LongPipeline:
             warnings.warn(msg)
         return y[:p.out_length].astype(out_dtype), f0_np
 
-    def _sequential(self, p, key):
-        dev = self.device
-        y = np.zeros(p.out_length + p.fft, np.float64)
-        carry = torch.zeros(1, dtype=torch.int64, device=dev)
-        ord0 = torch.zeros(1, dtype=torch.int64, device=dev)
-        pending, flags = None, []
-        for k in range(p.n_chunks):
-            buf, carry, ord0, ovf = _chunk_step(p, k, k + 1, carry, ord0,
-                                                key)
-            flags.append(ovf)
-            queued = (k, _download(buf))
-            if pending is not None:
-                _land(y, p, *pending)
-            pending = queued
-        _land(y, p, *pending)
-        return y, torch.cat(flags).cpu()
+    def _sequential(self, p, key, call=None):
+        """The chunks one by one, each step through ``call`` (a
+        ``graphs.Programs`` cache's, None: a cache of this loop's own,
+        dropped at its end; on the card the step's captured program from
+        the second chunk on, the carry and ordinal passed from one
+        replay's outputs to the next's inputs on the device;
+        graphs.eager: eagerly)."""
+        with _programs(call) as call:
+            dev = self.device
+            key = N.key_tensor(key, dev)
+            ks = torch.arange(p.n_chunks, device=dev)
+            y = np.zeros(p.out_length + p.fft, np.float64)
+            carry = torch.zeros(1, dtype=torch.int64, device=dev)
+            ord0 = torch.zeros(1, dtype=torch.int64, device=dev)
+            pending, flags = None, []
+            for k in range(p.n_chunks):
+                buf, carry, ord0, ovf = call(
+                    _step_program, (ks[k:k + 1], carry, ord0, key),
+                    dtypes=_DTYPES, plan=p)
+                flags.append(ovf)
+                queued = (k, _download(buf))
+                if pending is not None:
+                    _land(y, p, *pending)
+                pending = queued
+            _land(y, p, *pending)
+            return y, torch.cat(flags).cpu()
 
-    def _parallel(self, p, key):
-        carries, ords, ovf_scan = _phase_prescan(p, self.device)
-        y = np.zeros(p.out_length + p.fft, np.float64)
-        pending, flags = None, [ovf_scan]
-        for k0 in range(0, p.n_chunks, PARALLEL_GROUP):
-            k1 = min(k0 + PARALLEL_GROUP, p.n_chunks)
-            buf, _, _, ovf = _chunk_step(p, k0, k1, carries[k0:k1],
-                                         ords[k0:k1], key)
-            flags.append(ovf)
-            queued = (k0, _download(buf))
-            if pending is not None:
-                _land(y, p, *pending)
-            pending = queued
-        _land(y, p, *pending)
-        return y, torch.cat(flags).cpu()
+    def _parallel(self, p, key, call=None):
+        """The prescan, then the chunks PARALLEL_GROUP at a time through
+        ``call`` (as ``_sequential``; the prescan's and the chunk step's
+        programs in one cache); the last group is filled up with repeats
+        of the last chunk, whose buffers and flags are dropped, so every
+        group is one program's rows."""
+        with _programs(call) as call:
+            dev = self.device
+            carries, ords, ovf_scan = _phase_prescan(p, dev, call)
+            key = N.key_tensor(key, dev)
+            G = PARALLEL_GROUP
+            ks = torch.arange(-(-p.n_chunks // G) * G,
+                              device=dev).clamp(max=p.n_chunks - 1)
+            carries, ords = carries[ks], ords[ks]
+            y = np.zeros(p.out_length + p.fft, np.float64)
+            pending, flags = None, [ovf_scan]
+            for k0 in range(0, p.n_chunks, G):
+                n = min(G, p.n_chunks - k0)
+                rows = slice(k0, k0 + G)
+                buf, _, _, ovf = call(
+                    _step_program, (ks[rows], carries[rows], ords[rows],
+                                    key), dtypes=_DTYPES, plan=p)
+                flags.append(ovf[:n])
+                queued = (k0, _download(buf[:n]))
+                if pending is not None:
+                    _land(y, p, *pending)
+                pending = queued
+            _land(y, p, *pending)
+            return y, torch.cat(flags).cpu()
 
     def _sharded(self, p, key, mesh):
         from worldtpu_torch.parallel.distributed import all_gather
@@ -475,8 +537,9 @@ class LongPipeline:
         ovf = torch.zeros(per, dtype=torch.uint8, device=self.device)
         for k0 in range(k_lo, k_hi, PARALLEL_GROUP):
             k1 = min(k0 + PARALLEL_GROUP, k_hi)
+            ks = torch.arange(k0, k1, device=self.device)
             buf[k0 - k_lo:k1 - k_lo], _, _, ovf[k0 - k_lo:k1 - k_lo] = \
-                _chunk_step(p, k0, k1, carries[k0:k1], ords[k0:k1], key)
+                _chunk_step(p, ks, carries[k0:k1], ords[k0:k1], key)
         # every rank's run, in the (data, time) rank order of the split
         bufs = all_gather(all_gather(buf, mesh, "time"), mesh, "data")
         ovfs = all_gather(all_gather(ovf, mesh, "time"), mesh, "data")
@@ -485,6 +548,20 @@ class LongPipeline:
         _land(y, p, 0, lambda: bufs)
         return y, torch.cat([ovf_scan,
                              ovfs.reshape(-1)[:p.n_chunks].bool()]).cpu()
+
+
+@contextlib.contextmanager
+def _programs(call):
+    """``call``, or when it is None the ``call`` of a ``graphs.Programs``
+    cache whose programs share one pool, dropped on exit."""
+    if call is not None:
+        yield call
+        return
+    programs = _graphs.Programs(shared_pool=True)
+    try:
+        yield programs.call
+    finally:
+        programs.clear()
 
 
 def _download(buf):

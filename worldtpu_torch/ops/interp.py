@@ -39,12 +39,15 @@ def interp1(x, y, xi, n_valid=None):
     n = x.shape[-1]
     x = x.expand(y.shape).contiguous()
     q = xi.expand(*y.shape[:-1], xi.shape[-1]).contiguous()
-    k = torch.searchsorted(x, q, right=True)
-    hi = n - 1 if n_valid is None else torch.as_tensor(
-        n_valid, device=y.device)[..., None] - 1
+    k = torch.searchsorted(x, q, right=True).clamp(min=1)
     # clip(k, 1, hi) as minimum(maximum(k, 1), hi); with hi < 1 the row has
-    # no segment and the index is only kept inside the array
-    k = torch.minimum(k.clamp(min=1), torch.as_tensor(hi, device=y.device))
+    # no segment and the index is only kept inside the array.  A host
+    # number stays a clamp bound (no host-to-device copy: a captured CUDA
+    # graph cannot hold one)
+    if isinstance(n_valid, torch.Tensor):
+        k = torch.minimum(k, n_valid.to(y.device)[..., None] - 1)
+    elif n_valid is not None:
+        k = k.clamp(max=int(n_valid) - 1)
     k = k.clamp(1, n - 1)
     x0, x1 = x.gather(-1, k - 1), x.gather(-1, k)
     y0, y1 = y.gather(-1, k - 1), y.gather(-1, k)

@@ -1,13 +1,14 @@
-"""Captured CUDA graphs of the float32 main path: the port's counterpart of
-``jax.jit``.
+"""Captured CUDA graphs of the port's device programs: the port's
+counterpart of ``jax.jit``.
 
 The JAX package jits ``batch_wav_to_wav`` and ``batch_analyze``
-(worldtpu/parallel/batch.py:281-286, :329-333): one compiled program per
-set of static arguments, F0 never leaving the device.  PyTorch runs
-eagerly, and the main path is some three thousand small launches a batch,
-so its wall follows the host.  Since the contour chain's loops are kernels
-(ops/contour_kernel.py), a float32 call on the card makes no host
-synchronisation and can be captured whole:
+(worldtpu/parallel/batch.py:281-286, :329-333), the full-batch Harvest
+(``harvest_device_full_batch``) and LongPipeline's chunk step and prescan
+(worldtpu/longaudio.py ``_chunk_step``, ``_phase_prescan``): one compiled
+program per set of static arguments, nothing read back by the host inside
+it.  PyTorch runs eagerly, and such a program is some thousands of small
+launches, so its wall follows the host.  A call that makes no host
+synchronisation can be captured whole:
 
   - the first call of a key runs eagerly, so a one-off call costs what an
     eager call costs;
@@ -22,11 +23,17 @@ synchronisation and can be captured whole:
 The key is the function, each tensor's shape, dtype and device, and the
 static arguments.  A ``HarvestGeometry`` is keyed by identity, as
 ``jax.jit`` keys the JAX package's (neither defines equality); the key
-holds the object, so its id is not reused while the key lives.
-``pitch_scale`` is not in the key: the program reads it from a 0-d float32
-buffer (``scale_buffer``), so one program serves every pitch.  At most
-``MAX_PROGRAMS`` programs are kept, the least recently used dropped first;
-``clear()`` drops them all (``jax.clear_caches``).
+holds the object, so its id is not reused while the key lives.  A value
+that changes from call to call without changing the program (the pitch
+scale, a chunk index, a noise key) is a tensor input and not part of the
+key: ``pitch_scale`` is read from a 0-d buffer (``scale_buffer``) when the
+caller passes ``scale``.  The module's ``call`` keeps at most
+``MAX_PROGRAMS`` programs in one global cache, the least recently used
+dropped first; ``clear()`` drops them all (``jax.clear_caches``).  A
+caller whose programs serve one job keeps a ``Programs`` cache of its own
+and drops it when the job ends (LongPipeline's chunk and prescan steps,
+which read one recording's tables in place); its programs may share one
+memory pool.
 
 A replay runs no Python, so it reads each device constant (band bounds,
 filter banks, twiddles, the decimation's tables) at the address it had at
@@ -37,13 +44,15 @@ an entry but the memory stays allocated while the program lives.
 
 Launch counts: capture records each kernel's launches without adding them
 to ``_build.launches`` (or ``zc_kernel.layout_launches``); each replay adds
-them, so a replayed batch counts what an eager one counts.  These counts
+them, so a replayed call counts what an eager one counts.  These counts
 are bookkeeping; ``chip_smoke.py`` checks them against the kernels that a
 profiled replay ran on the device.
 
-Only float32 CUDA tensors take this route; CPU tensors and float64 run
-eagerly (as CPU tensors take the kernels' plain versions).  A capture error
-raises: nothing retries eagerly.
+Only CUDA tensors take this route, and only with floating tensors of the
+caller's ``dtypes`` (float32 unless it says otherwise: the float64 batch
+programs sync the host for their mean and contour); CPU tensors run
+eagerly (as CPU tensors take the kernels' plain versions).  A capture
+error raises: nothing retries eagerly.
 """
 
 from __future__ import annotations
@@ -55,13 +64,9 @@ import torch
 from worldtpu_torch import _build
 from worldtpu_torch.ops.numeric import pinning
 
-#: captured programs kept (the corpus stream needs one per padded length)
+#: captured programs a cache keeps (the global one: the main path's two,
+#: the corpus stream's one per padded length, HarvestKernel.forward's)
 MAX_PROGRAMS = 4
-
-#: key -> _Program, least recently used first
-_programs: collections.OrderedDict = collections.OrderedDict()
-#: keys that ran once eagerly and capture at their next call
-_warm: collections.OrderedDict = collections.OrderedDict()
 
 
 def _counters():
@@ -87,83 +92,159 @@ def make_key(fn, tensors, static):
             tuple(sorted(static.items())))
 
 
-def capturable(tensors):
-    """True when every tensor is float32 on the first one's CUDA device."""
+def capturable(tensors, dtypes=(torch.float32,)):
+    """True when every tensor lies on the first one's CUDA device and
+    every floating tensor has one of ``dtypes``."""
     dev = tensors[0].device
     return dev.type == "cuda" and all(
-        t.device == dev and t.dtype == torch.float32 for t in tensors)
+        t.device == dev
+        and (t.dtype in dtypes or not t.dtype.is_floating_point)
+        for t in tensors)
 
 
 class _Program:
     """One captured call: its graph, static inputs and outputs, the device
-    constants it reads, and the kernel launches one replay makes."""
+    constants it reads, the kernel launches one replay makes, and the
+    bytes its capture added to the memory reserved on its device
+    (``held``)."""
 
-    def __init__(self, graph, inputs, scale, outputs, pins, counts):
+    def __init__(self, graph, inputs, scale, outputs, pins, counts, held):
         self.graph = graph
         self.inputs = inputs
         self.scale = scale
         self.outputs = outputs
         self.pins = pins
         self.counts = counts
+        self.held = held
 
     def replay(self, tensors, scale):
         for static, t in zip(self.inputs, tensors):
             static.copy_(t)
-        self.scale.fill_(scale)
+        if self.scale is not None:
+            self.scale.fill_(scale)
         self.graph.replay()
         for counter, delta in zip(_counters(), self.counts):
             _add(counter, delta, 1)
         return tuple(o.clone() for o in self.outputs)
 
 
-def _capture(fn, tensors, scale, static):
+def _args(tensors, scale):
+    """fn's positional arguments: the tensors, then the scale's buffer
+    when there is a scale."""
+    if scale is None:
+        return tuple(tensors), None
+    buf = scale_buffer(scale, tensors[0])
+    return (*tensors, buf), buf
+
+
+def _capture(fn, tensors, scale, static, pool=None):
     inputs = [t.clone() for t in tensors]
-    buf = scale_buffer(scale, inputs[0])
-    fn(*inputs, buf, **static)            # fills the caches capture reads
+    args, buf = _args(inputs, scale)
+    fn(*args, **static)                   # fills the caches capture reads
     before = [collections.Counter(c) for c in _counters()]
+    # the capture empties the allocator's cache on entry: what is reserved
+    # after it beyond this is the program's pool
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(inputs[0].device)
     graph = torch.cuda.CUDAGraph()
     try:
         with pinning() as pins, torch.cuda.graph(
-                graph, capture_error_mode="thread_local"):
-            outputs = fn(*inputs, buf, **static)
+                graph, pool=pool, capture_error_mode="thread_local"):
+            outputs = fn(*args, **static)
     finally:
         counts = [collections.Counter(c) - b
                   for c, b in zip(_counters(), before)]
         for counter, delta in zip(_counters(), counts):
             _add(counter, delta, -1)
-    return _Program(graph, inputs, buf, tuple(outputs), pins, counts)
+    held = torch.cuda.memory_reserved(inputs[0].device) - reserved
+    return _Program(graph, inputs, buf, tuple(outputs), pins, counts, held)
 
 
-def call(fn, tensors, scale, **static):
-    """``fn(*tensors, scale_buffer(scale), **static)`` (a tuple of
-    tensors): eagerly, or through the key's captured program."""
-    if not capturable(tensors):
-        return fn(*tensors, scale_buffer(scale, tensors[0]), **static)
-    key = make_key(fn, tensors, static)
-    prog = _programs.get(key)
-    if prog is None:
-        if key not in _warm:
-            _warm[key] = None
-            while len(_warm) > MAX_PROGRAMS:
-                _warm.popitem(last=False)
-            return fn(*tensors, scale_buffer(scale, tensors[0]), **static)
-        del _warm[key]
-        prog = _capture(fn, tensors, scale, static)
-        _programs[key] = prog
-        while len(_programs) > MAX_PROGRAMS:
-            _programs.popitem(last=False)
-    else:
-        _programs.move_to_end(key)
-    return prog.replay(tensors, scale)
+class Programs:
+    """A cache of captured programs: at most ``MAX_PROGRAMS``, the least
+    recently used dropped first, and the keys that ran once eagerly and
+    capture at their next call.  ``shared_pool``: the programs share one
+    memory pool (``torch.cuda.graph_pool_handle()``), so that they hold
+    one pool's worth of intermediates between them, not one each; that is
+    safe because replays run in stream order and each call clones its
+    outputs before the next replay.  A caller whose programs serve one
+    job keeps a cache of its own and drops it (``clear``) when the job
+    ends; the module's functions serve the global one."""
+
+    def __init__(self, shared_pool=False):
+        self.shared_pool = shared_pool
+        self._pool = None
+        #: key -> _Program, least recently used first
+        self._programs = collections.OrderedDict()
+        #: keys that ran once eagerly and capture at their next call
+        self._warm = collections.OrderedDict()
+
+    def call(self, fn, tensors, scale=None, *, dtypes=(torch.float32,),
+             **static):
+        """``fn(*tensors, scale_buffer(scale), **static)``, or
+        ``fn(*tensors, **static)`` when ``scale`` is None (a tuple of
+        tensors): eagerly, or through the key's captured program when the
+        tensors are ``capturable`` with ``dtypes``."""
+        if not capturable(tensors, dtypes):
+            return eager(fn, tensors, scale, **static)
+        key = make_key(fn, tensors, static)
+        prog = self._programs.get(key)
+        if prog is None:
+            if key not in self._warm:
+                self._warm[key] = None
+                while len(self._warm) > MAX_PROGRAMS:
+                    self._warm.popitem(last=False)
+                return eager(fn, tensors, scale, **static)
+            del self._warm[key]
+            if self.shared_pool and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            prog = _capture(fn, tensors, scale, static, self._pool)
+            self._programs[key] = prog
+            while len(self._programs) > MAX_PROGRAMS:
+                self._programs.popitem(last=False)
+        else:
+            self._programs.move_to_end(key)
+        return prog.replay(tensors, scale)
+
+    def keys(self):
+        """The keys of the captured programs, least recently used first."""
+        return list(self._programs)
+
+    def held(self):
+        """The bytes each program's capture added to the reserved memory,
+        in ``keys`` order."""
+        return [p.held for p in self._programs.values()]
+
+    def clear(self):
+        """Drop every captured program, warm-up record and the shared
+        pool (their memory goes back to PyTorch's caching allocator)."""
+        self._programs.clear()
+        self._warm.clear()
+        self._pool = None
+
+
+_cache = Programs()
+_programs, _warm = _cache._programs, _cache._warm
+
+
+def call(fn, tensors, scale=None, *, dtypes=(torch.float32,), **static):
+    """``Programs.call`` through the global cache."""
+    return _cache.call(fn, tensors, scale, dtypes=dtypes, **static)
+
+
+def eager(fn, tensors, scale=None, *, dtypes=None, **static):
+    """What ``call`` computes, run eagerly and outside any cache (the
+    eager program, for a caller that must not capture or a measurement
+    that times it)."""
+    return fn(*_args(tensors, scale)[0], **static)
 
 
 def clear():
-    """Drop every captured program and warm-up record (their memory goes
-    back to PyTorch's caching allocator)."""
-    _programs.clear()
-    _warm.clear()
+    """Drop every program of the global cache (``jax.clear_caches``)."""
+    _cache.clear()
 
 
 def programs():
-    """The keys of the captured programs, least recently used first."""
-    return list(_programs)
+    """The keys of the global cache's programs, least recently used
+    first."""
+    return _cache.keys()

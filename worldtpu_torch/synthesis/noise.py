@@ -70,6 +70,23 @@ def as_key(key):
     return tuple(words)
 
 
+def key_tensor(key, device):
+    """A seed or two uint32 words (as ``as_key`` takes them) as an int64
+    tensor [2] on device: the form of the key that ``indexed_noise`` reads
+    on the device, so that a captured program takes it as an input."""
+    return torch.stack([torch.full((), w, dtype=torch.int64, device=device)
+                        for w in as_key(key)])    # no host-to-device copy
+
+
+def _words(key, device):
+    """key's two words: 0-d int64 tensors of a ``key_tensor`` on device,
+    else Python ints (``as_key``)."""
+    if (isinstance(key, torch.Tensor) and key.dtype == torch.int64
+            and key.device == device and key.shape == (2,)):
+        return key[0], key[1]
+    return as_key(key)
+
+
 def _rotl(x, r):
     return ((x << r) & _M32) | (x >> (32 - r))
 
@@ -96,7 +113,8 @@ def row_words(key, ords, n):
     values) of column j of each global ordinal's row: threefry(fold_in(key,
     ord), (0, j))."""
     zero = torch.zeros((), dtype=torch.int64, device=ords.device)
-    f0, f1 = threefry2x32(as_key(key), zero, ords.to(torch.int64) & _M32)
+    f0, f1 = threefry2x32(_words(key, ords.device), zero,
+                          ords.to(torch.int64) & _M32)
     j = torch.arange(n, dtype=torch.int64, device=ords.device)
     return threefry2x32((f0[..., None], f1[..., None]), zero, j)
 
@@ -156,7 +174,8 @@ def indexed_noise(key, start, count, fft_size, dtype=torch.float32,
     uint32 words), as ``worldtpu``'s ``indexed_noise`` draws it in
     ``dtype`` (float32, or float64 as JAX draws it under x64).
     ``start`` is an int or an int64 tensor of any shape (on the device: no
-    host sync); the leading dimensions follow its shape."""
+    host sync); the leading dimensions follow its shape.  A ``key_tensor``
+    on start's device is read there (no host read either)."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"indexed_noise draws float32 or float64 rows, "
                          f"not {dtype}")

@@ -5,8 +5,8 @@
     python3 chip_smoke.py --baseline DIR
         # also times the earlier designs of the kernels whose sources DIR
         # holds (ola.cu: wt_ola without the pulse count; extend.cu;
-        # zc_events.cu: one wt_zc_events call per band group) against the
-        # current ones, in turns
+        # zc_events.cu: one wt_zc_events call per band group; contour.cu:
+        # 8075e49's merge and smoothing) against the current ones, in turns
 
 Phases (any failure raises, so the exit code is not 0):
   1. environment: python/torch/CUDA versions and the card's name and power
@@ -63,7 +63,15 @@ Phases (any failure raises, so the exit code is not 0):
      equal but within KNIFE_REL of their threshold (each printed), its
      output and the whole chain (within CONTOUR_F0_ATOL, identical
      voicing) equal to the plain versions' on every row without such a
-     flip, the smoothing within CONTOUR_F0_ATOL of its plain version;
+     flip, the smoothing bit-equal to the host float64 filter rounded
+     once on every live section and within CONTOUR_F0_ATOL of its plain
+     version; per shape the live sections and the longest, the smoothing's
+     longest chain run, its orbit and cycle hits and full-run stretches
+     (its trace), and the merge's sections summed in parallel and in frame
+     order; with --baseline holding contour.cu, 8075e49's two kernels on the
+     main batch, the long utterance and the 60 s signal: the chain's F0
+     with them bit-equal to this one's on every row without a printed
+     knife-edge decision, and each kernel's device time alone in turns;
   5. the port on the card against the port on the CPU (plain versions) on
      the tests/fixtures/t22.wav batch: F0 and short-time RMS envelope;
      and Harvest on each of the main path's utterances, card against CPU:
@@ -284,13 +292,41 @@ PEAK_F32_FLOP_S = 67e12
 # the C entries of the designs the current kernels replaced (--baseline),
 # by source: wt_ola without the pulse count, wt_extend as now, wt_zc_events
 # for one band group (filt, ev, ccol, n_rows, nb, lo, nb_g, L, e_cap, c_row,
-# n_cols, n_store)
+# n_cols, n_store), and 8075e49's contour kernels (wt_contour_merge without
+# the ``ordered`` trace; wt_contour_smooth without the scratch row, the
+# trace and the cap: f0, st, ed, n_sec, out, B, F, n, NS, lag, chunk)
 _CP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-OLD_ENTRIES = {"ola.cu": ("wt_ola", (_CP,) * 3 + (_CI,) * 4 + (_CP,)),
-               "extend.cu": ("wt_extend",
-                             (_CP,) * 11 + (_CI,) * 6 + (_CF, _CP)),
-               "zc_events.cu": ("wt_zc_events",
-                                (_CP,) * 3 + (_CI,) * 9 + (_CP,))}
+OLD_ENTRIES = {"ola.cu": (("wt_ola", (_CP,) * 3 + (_CI,) * 4 + (_CP,)),),
+               "extend.cu": (("wt_extend",
+                              (_CP,) * 11 + (_CI,) * 6 + (_CF, _CP)),),
+               "zc_events.cu": (("wt_zc_events",
+                                 (_CP,) * 3 + (_CI,) * 9 + (_CP,)),),
+               "contour.cu": (("wt_contour_merge",
+                               (_CP,) * 17 + (_CI,) * 4 + (_CF, _CP)),
+                              ("wt_contour_smooth",
+                               (_CP,) * 5 + (_CI,) * 6 + (_CP,)))}
+
+
+# 8075e49's merge kept its two float rows (8 F bytes) in shared memory up to
+# this F, else in a [B, 2, F] scratch
+OLD_MERGE_SHARED_MAX_F = (227 * 1024 - 1024) // 8
+
+
+def old_contour_args(name, args, rows=None):
+    """The current contour entries' launch arguments as 8075e49's entries
+    take them (OLD_ENTRIES["contour.cu"]); ``rows`` is 8075e49's merge
+    scratch (old_merge_rows)."""
+    if name == "wt_contour_merge":
+        return args[:14] + (rows,) + args[15:17] + args[18:]
+    return args[:5] + args[7:13]
+
+
+def old_merge_rows(torch, margs):
+    """8075e49's merge scratch for the merge arguments margs: None where its
+    rows fit in shared memory."""
+    B, F = margs[0].shape
+    return (None if F <= OLD_MERGE_SHARED_MAX_F else torch.empty(
+        (B, 2, F), dtype=torch.float32, device=margs[0].device))
 
 # runs the CLI (its arguments follow -c) where jax and worldtpu cannot be
 # imported, so any import of either by the port fails the command
@@ -507,9 +543,9 @@ def short_time_rms(y, w=160):
 def main(argv=None):
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--baseline", type=pathlib.Path, default=None,
-                     help="a directory with earlier ola.cu, extend.cu or "
-                          "zc_events.cu to time in turns with the current "
-                          "kernels")
+                     help="a directory with earlier ola.cu, extend.cu, "
+                          "zc_events.cu or contour.cu to time in turns with "
+                          "the current kernels")
     ap_.add_argument("--mesh-rank", type=int, default=None,
                      help="internal: run one gloo rank of phase 11")
     ap_.add_argument("--mesh-dir", type=pathlib.Path, default=None,
@@ -992,9 +1028,9 @@ def main(argv=None):
             so_path, _ = _build.build([baseline / f for f in old_sources])
             old = ctypes.CDLL(str(so_path))
             for f in old_sources:
-                nm, sig = OLD_ENTRIES[f]
-                getattr(old, nm).argtypes = list(sig)
-                getattr(old, nm).restype = ctypes.c_int
+                for nm, sig in OLD_ENTRIES[f]:
+                    getattr(old, nm).argtypes = list(sig)
+                    getattr(old, nm).restype = ctypes.c_int
         if {"ola.cu", "extend.cu"} <= set(old_sources):
             # earlier OLA and extend: their results on the same inputs,
             # then their device times alone on the same captured
@@ -1171,12 +1207,21 @@ def main(argv=None):
     # line); at phase 6's one long utterance
     # (A's shared-memory rows) and phase 9's 60 s test signal (its
     # global-memory rows); and fix_step3 on the fixtures t22, t16 and t48
+    # (with --baseline holding contour.cu, 8075e49's design on each of the
+    # first three, in turns)
     from worldtpu_torch.ops import contour_kernel as CK
-    margs, mkw, sargs, _ = contour_check(
+    old_contour = old if "contour.cu" in old_sources else None
+    margs, mkw, sargs, info = contour_check(
         torch, f"main path B={BATCH}", hcand, hscore, n_grid,
-        geo.frame_period)
+        geo.frame_period,
+        cycles_per_ms=cycles_per_ms if old_contour else None,
+        old=old_contour)
     results.extend(contour_rows(torch, cycles_per_ms, card, margs, mkw,
                                 sargs, counts))
+    for r, nm in zip(results[-2:], ("merge", "smoothing")):
+        if info["baseline"]:
+            r["old_design_ms"] = info["baseline"][f"{nm} old"]
+            r["new_design_ms"] = info["baseline"][f"{nm} new"]
     del margs, sargs
     long_inputs = [(f"one {x1.shape[1] / FS:.2f} s utterance", x1, geo1,
                     "shared"),
@@ -1197,7 +1242,8 @@ def main(argv=None):
                 xl, torch.zeros(1, device=dev), geo=gl)
         _, _, _, info = contour_check(
             torch, label, cl, sl, gl.n_grid(), gl.frame_period,
-            cycles_per_ms=cycles_per_ms if variant else None)
+            cycles_per_ms=cycles_per_ms if variant else None,
+            old=old_contour if variant else None)
         if variant is not None and info["variant"] != variant:
             raise AssertionError(f"{label}: kernel A took its "
                                  f"{info['variant']} rows, not {variant}")
@@ -1971,20 +2017,63 @@ def knife_edges(keep_flips, merge_flips):
     return bad
 
 
+def smooth_host_check(sargs, sm_k):
+    """Kernel B's output against the host contour's float64 filteringF0
+    (analysis/contour.py, the reference's operation order) rounded once,
+    on every live section: (live sections, sections bit-equal, the
+    longest section's frames)."""
+    from worldtpu_torch.analysis import contour as HC
+    from worldtpu_torch.ops import contour_kernel as CK
+    f0, st, ed, n_sec = (a.cpu().numpy() for a in sargs)
+    got = sm_k.cpu().numpy()
+    lag = CK.LAG
+    B, F = f0.shape
+    n_all = n_eq = longest = 0
+    for b in range(B):
+        padded = np.zeros(F + 2 * lag)
+        padded[lag:lag + F] = f0[b]
+        for k in range(int(n_sec[b])):
+            s_, e_ = int(st[b, k]), int(ed[b, k])
+            host = HC._filtering_f0(padded, s_, e_)[s_:e_ + 1]
+            n_eq += (got[b, s_ - lag:e_ - lag + 1].tobytes()
+                     == host.astype(np.float32).tobytes())
+            n_all += 1
+            longest = max(longest, e_ - s_ + 1)
+    return n_all, n_eq, longest
+
+
+def smooth_trace(tr, n_sec):
+    """Kernel B's trace over the live slots: the longest chain and all
+    steps run, and how many sections hit each of SMOOTH_FLAGS."""
+    from worldtpu_torch.ops import contour_kernel as CK
+    t = tr.cpu().numpy()
+    live = np.arange(t.shape[1])[None] < n_sec.cpu().numpy()[:, None]
+    steps, flags = t[..., 0][live], t[..., 1][live]
+    out = dict(longest_chain=int(steps.max()) if steps.size else 0,
+               steps=int(steps.astype(np.int64).sum()))
+    for name, bit in CK.SMOOTH_FLAGS.items():
+        out[name] = int(((flags & bit) != 0).sum())
+    return out
+
+
 def contour_check(torch, label, cand, score, n_out, frame_period,
-                  grid_ms=1, cycles_per_ms=None):
+                  grid_ms=1, cycles_per_ms=None, old=None):
     """Kernels A and B on the contour chain of (cand, score) [B, F, S] on
     the card against their plain versions: A's section sums bit for bit
     against the CPU plain version on the downloaded arguments, its keep
     mask against the CPU plain version (identical) and the card's plain
     version (flips only at knife edges, each printed), its output equal
-    to both plain versions' on every row without a flip, B within
+    to both plain versions' on every row without a flip, B bit-equal to
+    the host float64 filter rounded once on every live section and within
     CONTOUR_F0_ATOL of its plain version, and the whole chain with both
     kernels against the chain of plain versions on the rows without a flip
-    (voicing identical, F0 within CONTOUR_F0_ATOL).  A's row layout
-    follows F; with ``cycles_per_ms`` each kernel's device time alone is
-    measured too.  Returns (merge args, merge keywords, smooth args, a
-    dict of figures); raises on a failed gate."""
+    (voicing identical, F0 within CONTOUR_F0_ATOL).  Prints B's trace
+    (chains run, shortcuts, full runs) and how A summed its sections.  A's
+    row layout follows F; with ``cycles_per_ms`` each kernel's device time
+    alone is measured too; with ``old`` (a baseline library holding PR
+    11's contour.cu) contour_baseline runs as well.  Returns (merge args,
+    merge keywords, smooth args, a dict of figures); raises on a failed
+    gate."""
     from worldtpu_torch.analysis import contour_device as CDV
     from worldtpu_torch.ops import contour_kernel as CK
     f0_k, (margs, mkw), sargs, f0_p = chain_calls(
@@ -1998,7 +2087,7 @@ def contour_check(torch, label, cand, score, n_out, frame_period,
                                              trace=True)
         out_c, tr_c = CK.contour_merge_plain(*(a.cpu() for a in margs),
                                              grid_ms=grid, trace=True)
-        sm_k = CK.contour_smooth_cuda(*sargs)
+        sm_k, s_tr = CK.contour_smooth_cuda(*sargs, trace=True)
         sm_p = CK.contour_smooth_plain(*sargs)
     torch.cuda.synchronize()
     n_sec = margs[5]
@@ -2018,15 +2107,19 @@ def contour_check(torch, label, cand, score, n_out, frame_period,
     nv = int(live.sum())
     n_ch = int(tr_k["keep"].sum())
     contested = int((~torch.isnan(tr_k["s1"])).sum())
+    n_ordered = int(tr_k["ordered"][live].sum())
     sm_v = torch.equal(sm_k > 0, sm_p > 0)
     sm_d = float((sm_k - sm_p).abs().max()) if F else 0.0
     ch_v = torch.equal(f0_k[o] > 0, f0_p[o] > 0)
     ch_d = float((f0_k - f0_p)[o].abs().max()) if o.any() else 0.0
+    n_sm, n_host, longest = smooth_host_check(sargs, sm_k)
+    st_ = smooth_trace(s_tr, sargs[3])
     variant = "shared" if F <= CK.MERGE_SHARED_MAX_F else "global"
     log(f"contour kernels, {label}: B={B} F={F} slots {S}, live sections "
         f"{nv}, kept {n_ch}, contested merges {contested}; kernel A "
         f"({variant} rows): section sums bit-equal to the CPU plain "
-        f"version {ssum_same}; rows with a flip {flip_rows}; on the "
+        f"version {ssum_same}, summed in parallel {nv - n_ordered}, in "
+        f"frame order {n_ordered}; rows with a flip {flip_rows}; on the "
         f"other rows output equal to the CPU plain version "
         f"{out_same_c}, to the card's plain version {out_same_p}; keep "
         f"flips vs CPU {len(kf_c)}, vs card plain {len(kf_p)}; merge "
@@ -2036,6 +2129,14 @@ def contour_check(torch, label, cand, score, n_out, frame_period,
         f"{CONTOUR_F0_ATOL}); whole chain vs the plain chain on the rows "
         f"without a flip: voicing identical {ch_v}, max |dF0| {ch_d:.3e} "
         f"Hz (tol {CONTOUR_F0_ATOL})")
+    log(f"  {label}: kernel B bit-equal to the host float64 filter rounded "
+        f"once on {n_host} of {n_sm} live sections (gate: all); the "
+        f"longest section {longest} frames, the longest chain run "
+        f"{st_['longest_chain']} steps ({st_['steps']} in all); shortcuts: "
+        f"prefix orbit {st_['prefix_orbit']}, tail orbit "
+        f"{st_['tail_orbit']}, backward cycle {st_['back_cycle']}; full "
+        f"runs: prefix {st_['prefix_full']}, tail {st_['tail_full']}, "
+        f"backward periodic stretch {st_['back_full']}")
     for f in kf_c + kf_p:
         log(f"  keep flip: row {f[0]} slot {f[1]}: c/mean {f[2]!r} against "
             f"length {f[3]!r}")
@@ -2053,18 +2154,109 @@ def contour_check(torch, label, cand, score, n_out, frame_period,
                 *sargs))
         a_ms, b_ms = (device_ms(torch, cycles_per_ms, replayer(
             torch, _build, lib, seen_), 10) for seen_ in (a_seen, b_seen))
+        ns = 1e6 * b_ms / max(st_["longest_chain"], 1)
         times = (f"; device time alone: merge {a_ms:.4f} ms, smoothing "
-                 f"{b_ms:.4f} ms")
+                 f"{b_ms:.4f} ms = {ns:.2f} ns a step of its longest chain")
         del a_seen, b_seen
     log(f"  {label}: kernel A {variant} rows{times}")
     if (not ssum_same or bad or kf_c or not out_same_c or not out_same_p
-            or not sm_v or sm_d > CONTOUR_F0_ATOL
+            or not sm_v or sm_d > CONTOUR_F0_ATOL or n_host != n_sm
             or not ch_v or ch_d > CONTOUR_F0_ATOL):
         raise AssertionError(f"contour kernels disagree with their plain "
                              f"versions ({label})")
+    ab = {}
+    if old is not None:
+        ab = contour_baseline(torch, label, old, cand, score, n_out,
+                              frame_period, grid_ms, margs, sargs, f0_k,
+                              tr_k, cycles_per_ms)
     return margs, dict(mkw, grid_ms=grid), sargs, dict(
         live=nv, kept=n_ch, contested=contested, merge_flips=len(mf_p),
-        smooth_err=sm_d, chain_err=ch_d, variant=variant)
+        smooth_err=sm_d, chain_err=ch_d, variant=variant, baseline=ab,
+        trace=st_, longest=longest, ordered=n_ordered)
+
+
+def contour_baseline(torch, label, old, cand, score, n_out, frame_period,
+                     grid_ms, margs, sargs, f0_new, tr_new, cycles_per_ms):
+    """8075e49's contour kernels (``old``, a baseline library) on the same
+    chain: its F0 against the current kernels' chain F0, bit-equal on
+    every row without a merge decision that differs between the two
+    designs (each printed; only within KNIFE_REL of its threshold); with
+    ``cycles_per_ms`` each kernel's device time alone, old and new in
+    turns (old, new, new, old).  Returns {"merge old": [ms, ms], ...};
+    raises on a failed gate."""
+    from worldtpu_torch import _build
+    from worldtpu_torch.analysis import contour_device as CDV
+    from worldtpu_torch.ops import contour_kernel as CK
+    real = _build.launch
+    grid = grid_ms
+    old_rows = old_merge_rows(torch, margs)
+
+    def adapt(name, args):
+        return old_contour_args(name, args, old_rows)
+
+    def launch_old(name, device, *args):
+        if name not in ("wt_contour_merge", "wt_contour_smooth"):
+            return real(name, device, *args)
+        with torch.cuda.device(device):
+            err = getattr(old, name)(
+                *_build.c_args(adapt(name, args)),
+                torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError(f"baseline {name}: CUDA launch failed ({err})")
+
+    _build.launch = launch_old
+    try:
+        with torch.no_grad():
+            f0_old = CDV.fix_and_smooth(cand, score, n_out, frame_period,
+                                        grid_ms=grid_ms)
+            _, tr_old = CK.contour_merge_cuda(*margs, grid_ms=grid,
+                                              trace=True)
+    finally:
+        _build.launch = real
+    torch.cuda.synchronize()
+    kf, mf, rows = merge_decisions(margs, grid, tr_new, tr_old)
+    flip_rows = sorted(rows | {f[0] for f in mf})
+    other = torch.ones(f0_new.shape[0], dtype=torch.bool)
+    other[flip_rows] = False
+    o = other.to(f0_new.device)
+    same = torch.equal(f0_new[o], f0_old[o])
+    bad = knife_edges(kf, mf)
+    log(f"  {label}: 8075e49's contour kernels (--baseline): section sums "
+        f"bit-equal to the new ones "
+        f"{torch.equal(tr_new['ssum'], tr_old['ssum'])}; rows with a "
+        f"decision that differs {flip_rows} (keep {len(kf)}, merge "
+        f"{len(mf)}; gate: only within {KNIFE_REL:g} of the threshold); "
+        f"chain F0 bit-equal on the other rows {same}")
+    for f in kf:
+        log(f"  keep flip (new vs 8075e49): row {f[0]} slot {f[1]}: c/mean "
+            f"{f[2]!r} against length {f[3]!r}")
+    for f in mf:
+        log(f"  merge flip (new vs 8075e49): row {f[0]} step {f[1]}: new s1 "
+            f"{f[2]!r} s2 {f[3]!r}; 8075e49 s1 {f[4]!r} s2 {f[5]!r}")
+    if not same or bad:
+        raise AssertionError(f"the contour chain differs from 8075e49's "
+                             f"({label})")
+    times = {}
+    if cycles_per_ms is not None:
+        lib = _build.library()
+        with torch.no_grad():
+            _, a_seen = capture(_build, lambda: CK.contour_merge_cuda(
+                *margs, grid_ms=grid))
+            _, b_seen = capture(_build, lambda: CK.contour_smooth_cuda(
+                *sargs))
+        for turn in ("old", "new", "new", "old"):
+            for nm, seen_ in (("merge", a_seen), ("smoothing", b_seen)):
+                run = (replayer(torch, _build, old, seen_, adapt)
+                       if turn == "old" else
+                       replayer(torch, _build, lib, seen_))
+                times.setdefault(f"{nm} {turn}", []).append(
+                    device_ms(torch, cycles_per_ms, run, 10))
+        log(f"  {label}: 8075e49's design vs this one, device time alone, in "
+            f"turns (old, new, new, old): " + "; ".join(
+                f"{k} {[round(v, 4) for v in vs]} ms"
+                for k, vs in times.items()) + f"  [{card_line()}]")
+        del a_seen, b_seen
+    return times
 
 
 def contour_rows(torch, cycles_per_ms, card, margs, mkw, sargs, counts):
@@ -2095,6 +2287,7 @@ def contour_rows(torch, cycles_per_ms, card, margs, mkw, sargs, counts):
         b_ms = alone(b_seen, 20)
         b_call = median_ms(torch, lambda: CK.contour_smooth_cuda(*sargs), 10)
         b_plain = median_ms(torch, lambda: CK.contour_smooth_plain(*sargs), 3)
+        _, s_tr = CK.contour_smooth_cuda(*sargs, trace=True)
     # A reads each row of f0 and the two score shadows once and writes the
     # output; of each live section its run, walk counts and ends, and the
     # accepted prefixes of its two walks (values and scores)
@@ -2102,30 +2295,31 @@ def contour_rows(torch, cycles_per_ms, card, margs, mkw, sargs, counts):
     steps = int(n_on[on].sum())
     a_bytes = 16 * B * F + 48 * int(live.sum()) + 8 * steps
     a_bound = bound(a_bytes, 2 * B * F)
-    # B reads f0 and each live section's ends and writes the output; per
-    # live section n forward steps and 2 (n - st) steps of the second pass
-    # (a recomputed forward step and a backward one): 4 + 9 + 9 double
-    # operations a step, counted as float32 operations at the ratio of
-    # the peaks
+    # B reads f0 and each live section's ends and writes the output; its
+    # operations: the recursion steps this run's chains ran (the trace), 9
+    # double operations a step, counted as float32 operations at the ratio
+    # of the peaks.  The chain is latency, not work: the bound is bytes.
     n = F + 2 * CK.LAG
     s_st, s_n = sargs[1], sargs[3]
     s_live = torch.arange(s_st.shape[1], device=s_st.device)[None] \
         < s_n[:, None]
     tail = (n - s_st)[s_live]
-    b_ops = int(s_live.sum()) * 4 * n + 18 * int(tail.sum())
+    st_ = smooth_trace(s_tr, s_n)
     b_bound = bound(8 * B * F + 16 * int(s_live.sum()),
-                    b_ops * PEAK_F32_FLOP_S / PEAK_F64_FLOP_S)
-    longest = n + 2 * int(tail.max()) if tail.numel() else 0
+                    9 * st_["steps"] * PEAK_F32_FLOP_S / PEAK_F64_FLOP_S)
+    longest = st_["longest_chain"]
+    first = n + 2 * int(tail.max()) if tail.numel() else 0
     log(f"contour_merge: {int(live.sum())} live sections, {steps} accepted "
         f"walk steps read; device time alone {a_ms:.4f} ms, with its "
         f"wrapper {a_call:.4f} ms, plain {a_plain:.3f} ms, bound "
         f"{a_bound[0]:.5f} ms ({a_bound[1]})  [{card}]")
     log(f"contour_smooth: {int(s_live.sum())} live sections of a {n}-frame "
-        f"padded contour; the longest chain {longest} recursion steps = "
-        f"{1e6 * b_ms / max(longest, 1):.2f} ns a step of the device time "
-        f"alone {b_ms:.4f} ms; with its wrapper {b_call:.4f} ms, plain "
-        f"{b_plain:.3f} ms, bound {b_bound[0]:.5f} ms ({b_bound[1]})  "
-        f"[{card}]")
+        f"padded contour; chain floor: the longest chain run {longest} "
+        f"recursion steps ({st_['steps']} in all; 8075e49's design ran "
+        f"{first} for its longest) = {1e6 * b_ms / max(longest, 1):.2f} ns "
+        f"a step of the device time alone {b_ms:.4f} ms; with its wrapper "
+        f"{b_call:.4f} ms, plain {b_plain:.3f} ms, bound {b_bound[0]:.5f} "
+        f"ms ({b_bound[1]})  [{card}]")
     rows = []
     for name, ms, call, plain, bnd, entry, err, rep in (
             ("contour_merge", a_ms, a_call, a_plain, a_bound,
@@ -2142,6 +2336,7 @@ def contour_rows(torch, cycles_per_ms, card, margs, mkw, sargs, counts):
             call_ms=call, plain_ms=plain, bound=bnd, library_ms=None))
     rows[0]["max_abs_err"] = float((out - CK.contour_merge_plain(
         *margs, **mkw)).abs().max())
+    rows[1]["longest_chain"] = longest
     return rows
 
 

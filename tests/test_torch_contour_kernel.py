@@ -3,14 +3,18 @@ the captured main path (parallel/graphs.py).
 
 On the CPU: the plain versions through the static-slot plumbing against
 worldtpu's device chain (tests/test_torch_contour.py holds the batches),
-and the kernels' rules written out in numpy (``merge_rule``,
-``smooth_rule``: what csrc/contour.cu computes, step for step) against the
-plain versions; the graph cache's key, eviction and the device constants
-a capture pins.  Marked ``cuda``: the kernels against their plain versions
-on the card, and graph replay against the eager call.  Inputs are made with numpy from seeds.  JAX is imported
-inside the tests that use it, so that the ``cuda`` tests run where JAX is
-not installed (``python -m pytest tests/test_torch_contour_kernel.py -m
-cuda --noconftest``)."""
+and the kernels' rules written out in numpy (``merge_rule``: the section
+sums in any order where they are exact, else in frame order;
+``smooth_rule``: the host filter's recursion with its orbit and cycle
+jumps over the held edges, or each stretch in full; what csrc/contour.cu
+computes) against the plain versions and the host filter; the graph
+cache's key, eviction and the device constants a capture pins.  Marked
+``cuda``: the kernels against their plain versions and the host filter on
+the card (at F = 60,001, with the orbit search cut short), and graph
+replay against the eager call.  Inputs are made with numpy from seeds.
+JAX is imported inside the tests that use it, so that the ``cuda`` tests
+run where JAX is not installed (``python -m pytest
+tests/test_torch_contour_kernel.py -m cuda --noconftest``)."""
 
 import numpy as np
 import pytest
@@ -92,17 +96,46 @@ def _merge_args(f0, cand, score, grid_ms=1):
     return seen[0][0], out
 
 
+def _warp_sum(pieces):
+    """Kernel A's warp sum of float32 values: lane l adds, in double, the
+    elements l, l + 32, ... of each piece in turn, then the shuffle tree
+    (lane 0's double)."""
+    p = np.zeros(32)
+    for v in pieces:
+        for lane in range(32):
+            for a in v[lane::32]:
+                p[lane] += float(a)
+    for o in (16, 8, 4, 2, 1):
+        p[:o] = p[:o] + p[o:2 * o]
+    return p[0]
+
+
+def sum_is_exact(v, n):
+    """Kernel A's condition for a section sum of n frames of float32 values
+    v: every partial sum exact in double, so its order is free.  Each
+    nonzero value is a multiple of 2^(emin - 150) and below
+    2^(emax - 126) (biased exponents, subnormals as 1)."""
+    ex = (np.asarray(v, np.float32).view(np.int32) >> 23) & 0xff
+    ex = ex[np.asarray(v) != 0]
+    if n <= 0 or ex.size == 0:
+        return True
+    emin, emax = max(int(ex.min()), 1), int(ex.max())
+    d = emax - emin
+    return emax < 255 and d <= 29 and n <= 2 ** (29 - d)
+
+
 def merge_rule(f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on, so,
                c_len):
     """Kernel A (csrc/contour.cu, merge_kernel) on one utterance in numpy:
-    (out, ssum, keep, s1, s2) as the kernel writes them."""
+    (out, ssum, keep, s1, s2, ordered) as the kernel writes them."""
     F, S = f0.shape[0], st.shape[0]
     ssum = np.zeros(S, np.float32)
     keep = np.zeros(S, bool)
+    ordered = np.zeros(S, bool)
     s1t = np.full(S, np.nan, np.float32)
     s2t = np.full(S, np.nan, np.float32)
     if n_sec <= 0:
-        return f0.copy(), ssum, keep, s1t, s2t
+        return f0.copy(), ssum, keep, s1t, s2t, ordered
 
     def channel(k):
         """Section k's value and score rows, frame by frame: the walks'
@@ -121,25 +154,36 @@ def merge_rule(f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on, so,
     nl = min(n_sec, S)
     for k in range(nl):
         v, _ = channel(k)
-        acc = 0.0
-        for j in range(so[S + k], so[k]):          # frame order, double
-            acc += float(v[j])
-        ssum[k] = np.float32(acc)
+        st2, ed2 = so[S + k], so[k]
+        run = np.arange(max(st[k], st2), min(ed[k], ed2 - 1) + 1)
+        walk_b = st[k] - 1 - np.arange(n_on[S + k])
+        walk_f = ed[k] + 1 + np.arange(n_on[k])
+        pieces = [v[j[(j >= st2) & (j < ed2)]]
+                  for j in (walk_b, run, walk_f)]
+        if sum_is_exact(np.concatenate(pieces), ed2 - st2):
+            ssum[k] = np.float32(_warp_sum(pieces))
+        else:                                      # frame order, double
+            acc = 0.0
+            for j in range(st2, ed2):
+                acc += float(v[j])
+            ssum[k] = np.float32(acc)
+            ordered[k] = True
     m = np.float32(0.0)
-    order = []
     with np.errstate(divide="ignore", invalid="ignore"):
         for k in range(nl):
             ln = np.float32(so[k] - so[S + k])
             m = np.float32(m + ssum[k]) / ln
-            if np.float32(c_len) / m < ln:
-                keep[k] = True
-                i = len(order)                     # stable by start
-                while i > 0 and so[S + order[i - 1]] > so[S + k]:
-                    i -= 1
-                order.insert(i, k)
-    if not order:
-        return channel(0)[0], ssum, keep, s1t, s2t
-    first = int(np.nonzero(keep)[0][0])
+            keep[k] = np.float32(c_len) / m < ln
+    kept = np.nonzero(keep)[0]
+    if not kept.size:
+        return channel(0)[0], ssum, keep, s1t, s2t, ordered
+    # the stable start order as a rank
+    order = [0] * kept.size
+    for k in kept:
+        order[sum(int(so[S + j] < so[S + k]
+                      or (so[S + j] == so[S + k] and j < k))
+                  for j in kept)] = k
+    first = int(kept[0])
     merged, mss = channel(first)
     b0, b1 = so[S + first], so[first]
     for i in range(1, len(order)):
@@ -150,8 +194,8 @@ def merge_rule(f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on, so,
         covered = b0 <= i1 and b1 >= i2
         lo = i1
         if not fresh and not covered:
-            s1 = np.float32(sum(float(a) for a in mss[i1:b1 + 1]))
-            s2 = np.float32(sum(float(a) for a in s[i1:b1 + 1]))
+            s1 = np.float32(_warp_sum([mss[i1:b1 + 1]]))
+            s2 = np.float32(_warp_sum([s[i1:b1 + 1]]))
             s1t[i], s2t[i] = s1, s2
             if s1 > s2:
                 lo = b1
@@ -162,47 +206,153 @@ def merge_rule(f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on, so,
             b0 = i1
         if fresh or not covered:
             b1 = i2
-    return merged, ssum, keep, s1t, s2t
+    return merged, ssum, keep, s1t, s2t, ordered
 
 
-def smooth_rule(x, s, e, chunk):
-    """Kernel B (csrc/contour.cu, smooth_kernel) on one section in numpy:
-    the edge-held signal of the padded contour x [n] filtered forward, then
-    backward over the forward pass's outputs recomputed chunk by chunk from
-    checkpoints of the state, in double; float32 at the run's frames
-    [s, e]."""
+_BLK = 16        # csrc/contour.cu kBlk
+
+
+def _bq(x, w0, w1):
+    """One biquad step in filter_f0.c's order: (w0', w1', output)."""
     a0, a1 = TCK._SMOOTH_A
     b0, b1 = TCK._SMOOTH_B
+    wt = x + a0 * w0 + a1 * w1
+    return wt, w0, b0 * wt + b1 * w0 + b0 * w1
+
+
+def orbit(c, w0=0.0, w1=0.0, limit=TCK.SMOOTH_ORBIT_CAP):
+    """Kernel B's orbit search on the constant input c from state (w0,
+    w1): the state saved every _BLK steps, the next _BLK states matched
+    against it bit for bit.  (steps run, period) at the first match
+    within ``limit`` steps, else (steps run, 0)."""
+    i = 0
+    while i + _BLK <= limit:
+        sv, hit = (w0, w1), 0
+        for j in range(1, _BLK + 1):
+            w0, w1, _ = _bq(c, w0, w1)
+            if not hit and (w0, w1) == sv:
+                hit = j
+        i += _BLK
+        if hit:
+            return i, hit
+    return i, 0
+
+
+def smooth_rule(x, s, e, cap=TCK.SMOOTH_ORBIT_CAP, chunk=None):
+    """Kernel B (csrc/contour.cu, smooth_kernel) on one section in numpy:
+    the reference's filteringF0 of the edge-held padded contour x [n] in
+    double, float32 at the run's frames [s, e], with the kernel's
+    shortcuts: the prefix [0, s) and the tail (e, n) jump on the biquad's
+    exact orbit, the backward pass over the periodic tail on its exact
+    cycle; a stretch where none shows within ``cap`` steps runs in full
+    (the tail from checkpoints every ``chunk`` steps).  Returns (out,
+    trace): the steps run and the flags of TCK.SMOOTH_FLAGS."""
     n = len(x)
-    held = np.concatenate([np.full(s, x[s]), x[s:e + 1],
-                           np.full(n - e - 1, x[e])]).astype(np.float64)
-    n_ck = -(-n // chunk)
-    ck = np.zeros((n_ck, 2))
+    x = np.asarray(x, np.float64)
+    chunk = chunk or TCK.smooth_chunk(n)
+    fl = TCK.SMOOTH_FLAGS
+    tr = dict(steps=0, flags=0)
+    # the prefix: the constant x[s]
     w0 = w1 = 0.0
-    for c in range(n_ck):
-        ck[c] = w0, w1
-        for i in range(c * chunk, min(n, (c + 1) * chunk)):
-            wt = held[i] + a0 * w0 + a1 * w1
-            w1, w0 = w0, wt
+    i = 0
+    while i + _BLK <= s and i < cap:
+        sv, hit = (w0, w1), 0
+        for j in range(1, _BLK + 1):
+            w0, w1, _ = _bq(x[s], w0, w1)
+            if not hit and (w0, w1) == sv:
+                hit = j
+        i += _BLK
+        tr["steps"] += _BLK
+        if hit:
+            w0, w1 = sv
+            for _ in range((s - (i - _BLK)) % hit):
+                w0, w1, _ = _bq(x[s], w0, w1)
+                tr["steps"] += 1
+            i = s
+            tr["flags"] |= fl["prefix_orbit"]
+    if i < s:
+        tr["flags"] |= fl["prefix_full"]
+    for _ in range(i, s):
+        w0, w1, _ = _bq(x[s], w0, w1)
+        tr["steps"] += 1
+    # the section, its outputs kept
+    ybuf = np.zeros(n)
+    for i in range(s, e + 1):
+        w0, w1, ybuf[i] = _bq(x[i], w0, w1)
+    tr["steps"] += e - s + 1
+    # the tail: the constant x[e], its outputs kept until the orbit shows
+    tbuf = np.zeros(cap)
+    i, i0 = e + 1, None
+    while i + _BLK <= n and i - (e + 1) + _BLK <= cap:
+        sv, hit = (w0, w1), 0
+        for j in range(1, _BLK + 1):
+            w0, w1, tbuf[i - (e + 1) + j - 1] = _bq(x[e], w0, w1)
+            if not hit and (w0, w1) == sv:
+                hit = j
+        i += _BLK
+        tr["steps"] += _BLK
+        if hit:
+            i0, lam = i - _BLK, hit
+            tr["flags"] |= fl["tail_orbit"]
+            break
+    if i0 is None:                      # the rest in full, checkpointed
+        i_f, ck = i, []
+        for k in range(i_f, n):
+            if (k - i_f) % chunk == 0:
+                ck.append((w0, w1))
+            w0, w1, _ = _bq(x[e], w0, w1)
+        if i_f < n:
+            tr["flags"] |= fl["tail_full"]
+        tr["steps"] += n - i_f
+    # backward from n - 1
     out = np.zeros(e - s + 1, np.float32)
     v0 = v1 = 0.0
-    c = n_ck - 1
-    while c >= 0 and (c + 1) * chunk > s:
-        i0, i1 = c * chunk, min(n, (c + 1) * chunk)
-        w0, w1 = ck[c]
-        buf = []
-        for i in range(i0, i1):
-            wt = held[i] + a0 * w0 + a1 * w1
-            buf.append(b0 * wt + b1 * w0 + b0 * w1)
-            w1, w0 = w0, wt
-        for i in range(i1 - 1, max(i0, s) - 1, -1):
-            zt = buf[i - i0] + a0 * v0 + a1 * v1
-            z = b0 * zt + b1 * v0 + b0 * v1
-            v1, v0 = v0, zt
-            if i <= e:
-                out[i - s] = z
-        c -= 1
-    return out
+    if i0 is not None:
+        P = tbuf[i0 - (e + 1):]
+        T, t, ph = n - i0, 0, (n - 1 - i0) % lam
+        while t < cap and t + _BLK <= T:
+            sv, hit = (v0, v1, ph), 0
+            for j in range(1, _BLK + 1):
+                v0, v1, _ = _bq(P[ph], v0, v1)
+                ph = ph - 1 if ph else lam - 1
+                if not hit and (v0, v1, ph) == sv:
+                    hit = j
+            t += _BLK
+            tr["steps"] += _BLK
+            if hit:
+                v0, v1, ph = sv
+                for _ in range((T - (t - _BLK)) % hit):
+                    v0, v1, _ = _bq(P[ph], v0, v1)
+                    ph = ph - 1 if ph else lam - 1
+                    tr["steps"] += 1
+                t = T
+                tr["flags"] |= fl["back_cycle"]
+        if t < T:
+            tr["flags"] |= fl["back_full"]
+        tr["steps"] += T - t
+        for _ in range(t, T):
+            v0, v1, _ = _bq(P[ph], v0, v1)
+            ph = ph - 1 if ph else lam - 1
+        top = i0
+    else:                               # a chunk at a time, last first
+        for c in range(len(ck) - 1, -1, -1):
+            lo, hi = i_f + c * chunk, min(n, i_f + (c + 1) * chunk)
+            w0, w1 = ck[c]
+            buf = []
+            for k in range(lo, hi):
+                w0, w1, y = _bq(x[e], w0, w1)
+                buf.append(y)
+            for k in range(hi - 1, lo - 1, -1):
+                v0, v1, _ = _bq(buf[k - lo], v0, v1)
+            tr["steps"] += 2 * (hi - lo)
+        top = i_f
+    for k in range(top - 1, e, -1):
+        v0, v1, _ = _bq(tbuf[k - (e + 1)], v0, v1)
+        tr["steps"] += 1
+    for k in range(e, s - 1, -1):
+        v0, v1, out[k - s] = _bq(ybuf[k], v0, v1)
+    tr["steps"] += e - s + 1
+    return out, tr
 
 
 def _np(args):
@@ -334,8 +484,9 @@ def test_merge_rule_matches_plain():
         _, tr = TCK.contour_merge_plain(*args, grid_ms=grid, trace=True)
         a = _np(args)
         for b in range(len(f0)):
-            got, ssum, keep, s1, s2 = merge_rule(
+            got, ssum, keep, s1, s2, ordered = merge_rule(
                 *(t[b] for t in a), 2200.0 / grid)
+            assert not ordered.any()
             np.testing.assert_array_equal(got, out[b].numpy())
             assert ssum.tobytes() == tr["ssum"][b].numpy().tobytes()
             np.testing.assert_array_equal(keep, tr["keep"][b].numpy())
@@ -365,33 +516,131 @@ def _smooth_slots(f0):
     return seen[0], out
 
 
-@pytest.mark.parametrize("chunk", [16, 128])
-def test_smooth_rule_equals_host_filter(chunk):
-    """Kernel B's rule (smooth_rule: checkpoints every ``chunk`` samples,
-    the second pass over recomputed chunks) gives the bits of the host
-    contour's float64 filteringF0 (analysis/contour.py, the reference's
-    operation order) rounded once to float32, and is within 1e-3 Hz of the
-    blocked-matmul plain version (test_torch_contour.py's tolerance)."""
+def test_merge_sums_order_free_or_in_frame_order():
+    """Kernel A's section sums (merge_rule) against the plain version's:
+    where the exactness condition holds (every section of these inputs),
+    the warp's order, frame order and reversed frame order give the same
+    double and the plain version's float32 bits; a section with one value
+    far below the others (2^-100 against F0 values) breaks it, is summed in
+    frame order (``ordered``) and still gives the plain version's bits."""
+    n_exact = 0
+    for f0, cand, score, grid in _contour_cases(jax_batch=False):
+        args, _ = _merge_args(f0, cand, score, grid)
+        a = _np(args)
+        S = a[3].shape[1]
+        b = 2                                   # the dense row
+        k = 3
+        st, ed = a[3][b, k], a[4][b, k]
+        assert a[5][b] > k and ed > st
+        for tiny in (False, True):
+            if tiny:
+                args[0][b, st + 1] = 2.0 ** -100
+                a = _np(args)
+            _, tr = TCK.contour_merge_plain(*args, grid_ms=grid, trace=True)
+            _, ssum, _, _, _, ordered = merge_rule(*(t[b] for t in a),
+                                                   2200.0 / grid)
+            assert ssum.tobytes() == tr["ssum"][b].numpy().tobytes()
+            assert list(np.nonzero(ordered)[0]) == ([k] if tiny else [])
+            for j in range(min(int(a[5][b]), S)):
+                st2, ed2 = a[9][b, S + j], a[9][b, j]
+                v = _channel_row(a, b, j)[st2:ed2]
+                if sum_is_exact(v, ed2 - st2):
+                    fwd = rev = 0.0
+                    for x in v:
+                        fwd += float(x)
+                    for x in v[::-1]:
+                        rev += float(x)
+                    assert fwd == rev == _warp_sum([v])
+                    n_exact += 1
+                else:
+                    assert tiny and j == k
+    assert n_exact > 40
+
+
+_SMOOTH_CASES = {
+    # a run from the contour's second frame: s = LAG + 1
+    "from_lag_plus_1": ([(1, 200), (260, 330)], None),
+    # a run to the contour's last frame: its tail is LAG frames, too short
+    # for the backward pass to find its cycle
+    "to_last_frame": ([(40, 90), (300, 500)], None),
+    # runs a few frames apart
+    "few_frames_apart": ([(50, 80), (83, 120), (122, 125), (128, 200)],
+                         None),
+    # no shortcut: every stretch in full
+    "cap_0": ([(0, 90), (200, 350), (420, 470)], 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SMOOTH_CASES))
+def test_smooth_rule_equals_host_filter(case):
+    """Kernel B's rule (smooth_rule: orbit and cycle jumps on the held
+    edges, else the stretch in full) gives the bits of the host contour's
+    float64 filteringF0 (analysis/contour.py, the reference's operation
+    order) rounded once to float32, and is within 1e-3 Hz of the
+    blocked-matmul plain version (test_torch_contour.py's tolerance), on
+    each case's sections; the trace shows the case's branch."""
+    runs, cap = _SMOOTH_CASES[case]
+    cap = TCK.SMOOTH_ORBIT_CAP if cap is None else cap
     rng = np.random.RandomState(5)
     F = 500
-    f0 = np.zeros((2, F), np.float32)
-    f0[0, 0:90] = 150 + 6 * rng.randn(90)
-    f0[0, 200:350] = 110 + 3 * rng.randn(150)
-    f0[1, 310:F] = 220 + 5 * rng.randn(F - 310)
+    f0 = np.zeros((1, F), np.float32)
+    for a, e in runs:
+        f0[0, a:e] = 100 + 40 * rng.rand() + 4 * rng.randn(e - a)
     (f, st, ed, n_sec), plain = _smooth_slots(f0)
     st, ed, n_sec = st.numpy(), ed.numpy(), n_sec.numpy()
     lag = TCK.LAG
-    assert list(n_sec) == [2, 1] and st.shape[1] == (F + 2 * lag + 1) // 2
-    for b in range(2):
-        padded = np.zeros(F + 2 * lag)
-        padded[lag:lag + F] = f0[b]
-        for k in range(n_sec[b]):
-            s, e = st[b, k], ed[b, k]
-            got = smooth_rule(padded, s, e, chunk)
-            host = THC._filtering_f0(padded.copy(), s, e)[s:e + 1]
-            assert got.tobytes() == host.astype(np.float32).tobytes()
-            np.testing.assert_allclose(
-                got, plain[b, s - lag:e - lag + 1].numpy(), atol=1e-3)
+    n = F + 2 * lag
+    assert n_sec[0] == len(runs) and st.shape[1] == (n + 1) // 2
+    fl = TCK.SMOOTH_FLAGS
+    padded = np.zeros(n)
+    padded[lag:lag + F] = f0[0]
+    flags = []
+    for k in range(n_sec[0]):
+        s, e = st[0, k], ed[0, k]
+        got, tr = smooth_rule(padded, s, e, cap=cap)
+        host = THC._filtering_f0(padded.copy(), s, e)[s:e + 1]
+        assert got.tobytes() == host.astype(np.float32).tobytes()
+        np.testing.assert_allclose(
+            got, plain[0, s - lag:e - lag + 1].numpy(), atol=1e-3)
+        assert tr["steps"] < (n + 2 * (n - s) if cap else 4 * n)
+        flags.append(tr["flags"])
+    if case == "from_lag_plus_1":
+        assert st[0, 0] == lag + 1 and flags[0] & fl["prefix_orbit"]
+    elif case == "to_last_frame":
+        assert ed[0, 1] == n - lag - 1
+        assert flags[1] & (fl["back_full"] | fl["tail_full"])
+        assert flags[0] & fl["back_cycle"]
+    elif case == "few_frames_apart":
+        assert all(f & fl["tail_orbit"] and f & fl["back_cycle"]
+                   for f in flags)
+    else:
+        shortcuts = fl["prefix_orbit"] | fl["tail_orbit"] | fl["back_cycle"]
+        assert all(not f & shortcuts and f & fl["tail_full"]
+                   for f in flags)
+
+
+def test_orbits_within_cap():
+    """What kernel B's shortcut rests on: from zero state, the biquad on a
+    float32 constant in [40, 800] Hz (f0_floor to f0_ceil) reaches an
+    exact periodic orbit of period <= 16 that the kernel's search finds
+    within SMOOTH_ORBIT_CAP steps; also from the state a voiced run leaves
+    behind, on the run's last value (the tail)."""
+    rng = np.random.RandomState(11)
+    cs = rng.uniform(40, 800, 400).astype(np.float32)
+    periods = set()
+    for c in cs:
+        steps, p = orbit(float(c))
+        assert 1 <= p <= _BLK and steps <= TCK.SMOOTH_ORBIT_CAP
+        periods.add(p)
+    assert {1, 4, 8} <= periods
+    for _ in range(40):
+        run = (rng.uniform(60, 400)
+               + rng.randn(rng.randint(3, 300))).astype(np.float32)
+        w0 = w1 = 0.0
+        for v in run:
+            w0, w1, _ = _bq(float(v), w0, w1)
+        steps, p = orbit(float(run[-1]), w0, w1)
+        assert 1 <= p <= _BLK and steps <= TCK.SMOOTH_ORBIT_CAP
 
 
 def test_smooth_chunk_bounds():
@@ -652,6 +901,105 @@ def test_smooth_kernel_matches_plain(dev):
             host = THC._filtering_f0(padded.copy(), s, e)[s:e + 1]
             assert k[b, s - lag:e - lag + 1].cpu().numpy().tobytes() == \
                 host.astype(np.float32).tobytes()
+
+
+def _host_sections(f0, st, ed, n_sec, b):
+    """Row b's live sections: (s, e, the host float64 filter's float32
+    output on [s, e], the padded contour)."""
+    lag = TCK.LAG
+    padded = np.zeros(f0.shape[1] + 2 * lag)
+    padded[lag:lag + f0.shape[1]] = f0[b]
+    for i in range(int(n_sec[b])):
+        s, e = int(st[b, i]), int(ed[b, i])
+        host = THC._filtering_f0(padded.copy(), s, e)[s:e + 1]
+        yield s, e, host.astype(np.float32), padded
+
+
+@pytest.mark.cuda
+def test_smooth_kernel_long_contour(dev):
+    """Kernel B at F = 60,001 (phase 9's 60 s signal's length), with runs
+    from the contour's first frame and to its last, long and short ones:
+    bit-equal to the host float64 filter on every section, each section's
+    trace (steps run, flags, tail period, orbit start) equal to
+    smooth_rule's, one launch a call."""
+    rng = np.random.RandomState(7)
+    F = 60_001
+    f0 = np.zeros((2, F), np.float32)
+    for a, e in ((0, 24_000), (26_000, 26_030), (26_040, 26_300),
+                 (30_000, F)):
+        f0[0, a:e] = 150 + 20 * np.sin(np.arange(e - a) / 300) \
+            + 2 * rng.randn(e - a)
+    f0[1, 5:F - 3] = 210 + 3 * rng.randn(F - 8)
+    (f, st, ed, n_sec), _ = _smooth_slots(f0)
+    g = _to((f, st, ed, n_sec), dev)
+    n0 = _build.launches["wt_contour_smooth"]
+    k, tr = TCK.contour_smooth_cuda(*g, trace=True)
+    assert _build.launches["wt_contour_smooth"] == n0 + 1
+    k, tr = k.cpu().numpy(), tr.cpu().numpy()
+    lag = TCK.LAG
+    assert st[0, 0] == lag and ed[0, 3] == F + lag - 1
+    for b in range(2):
+        for i, (s, e, host, padded) in enumerate(
+                _host_sections(f0, st, ed, n_sec, b)):
+            assert k[b, s - lag:e - lag + 1].tobytes() == host.tobytes()
+            _, want = smooth_rule(padded, s, e)
+            assert (tr[b, i, 0], tr[b, i, 1]) == (want["steps"],
+                                                  want["flags"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [0, 32])
+def test_smooth_kernel_full_run(dev, cap, monkeypatch):
+    """Kernel B with its orbit search cut to ``cap`` steps (0: none; 32:
+    too few for any orbit): every held stretch runs in full, the tails from
+    checkpoints, and the output keeps the host float64 filter's bits on
+    every section; the trace flags show the full runs."""
+    rng = np.random.RandomState(8)
+    F = 3000
+    f0 = np.zeros((2, F), np.float32)
+    f0[0, 0:900] = 150 + 6 * rng.randn(900)
+    f0[0, 1200:2999] = 110 + 3 * rng.randn(1799)
+    f0[1, 5:F] = 220 + 5 * rng.randn(F - 5)
+    (f, st, ed, n_sec), _ = _smooth_slots(f0)
+    g = _to((f, st, ed, n_sec), dev)
+    monkeypatch.setattr(TCK, "SMOOTH_ORBIT_CAP", cap)
+    n0 = _build.launches["wt_contour_smooth"]
+    k, tr = TCK.contour_smooth_cuda(*g, trace=True)
+    assert _build.launches["wt_contour_smooth"] == n0 + 1
+    k, tr = k.cpu().numpy(), tr.cpu().numpy()
+    fl = TCK.SMOOTH_FLAGS
+    lag = TCK.LAG
+    for b in range(2):
+        for i, (s, e, host, _) in enumerate(
+                _host_sections(f0, st, ed, n_sec, b)):
+            assert k[b, s - lag:e - lag + 1].tobytes() == host.tobytes()
+            assert tr[b, i, 1] & fl["tail_full"]
+            assert not tr[b, i, 1] & (fl["prefix_orbit"] | fl["tail_orbit"]
+                                      | fl["back_cycle"])
+
+
+@pytest.mark.cuda
+def test_merge_kernel_frame_order_section(dev):
+    """Kernel A at F = 60,001 (global rows) with one run holding a value
+    far below the others (2^-100), so that section's sum is not exact in
+    every order: the kernel sums it in frame order (``ordered``) and the
+    others in parallel; section sums bit-equal to the CPU plain version,
+    keep mask and output equal, one launch a call."""
+    F = 60_001
+    runs = [(20, 60), (100, 25_000), (25_006, 40_000), (40_004, F - 12)]
+    inner = (np.arange(F) > 0) & (np.arange(F) < F - 1)
+    f0, cand, score = _track_batch(F, 5, [(runs, inner)])
+    args, _ = _merge_args(f0, cand, score, 1)
+    args[0][0, 30_000] = 2.0 ** -100
+    out_cpu, tr_cpu = TCK.contour_merge_plain(*args, trace=True)
+    g = _to(args, dev)
+    n0 = _build.launches["wt_contour_merge"]
+    out, tr = TCK.contour_merge_cuda(*g, trace=True)
+    assert _build.launches["wt_contour_merge"] == n0 + 1
+    assert torch.equal(tr["ssum"].cpu(), tr_cpu["ssum"])
+    assert torch.equal(tr["keep"].cpu(), tr_cpu["keep"])
+    assert torch.equal(out.cpu(), out_cpu)
+    assert tr["ordered"].cpu().nonzero().tolist() == [[0, 2]]
 
 
 def _main_path_batch(dev):

@@ -88,15 +88,16 @@ def test_import_leaves_jax_out():
 
 
 def test_no_jax_import_in_sources():
-    """No file of the port, not chip_smoke.py and not the mesh tests' rank
-    worker imports JAX or anything of ``worldtpu`` (the port keeps its own
-    copies of what it needs)."""
+    """No file of the port, not chip_smoke.py, not contour_profile.py and
+    not the mesh tests' rank worker imports JAX or anything of
+    ``worldtpu`` (the port keeps its own copies of what it needs)."""
     import pathlib
     import re
     root = pathlib.Path(TH.__file__).resolve().parents[1]
     banned = re.compile(r"^\s*(from|import)\s+(jax|worldtpu)(\.|\s|$)")
     worker = root.parent / "tests" / "torch_mesh_worker.py"
-    paths = [*root.rglob("*.py"), root.parent / "chip_smoke.py", worker]
+    paths = [*root.rglob("*.py"), root.parent / "chip_smoke.py",
+             root.parent / "contour_profile.py", worker]
     assert len(paths) > 20
     assert {root / "codec.py", root / "io" / "corpus.py",
             root / "analysis" / "harvest.py", root / "native.py",

@@ -80,11 +80,12 @@ _SIGNATURES = {
     # per group), n_groups, B, nb, L, n_cols, n_store, stream
     "wt_zc_events": (_P, _P, _P, _P) + (_I,) * 6 + (_P,),
     # f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on, so, out, ssum,
-    # keep, order, rows (or NULL), s1, s2 (or NULL), B, F, S, E, c_len,
-    # stream
-    "wt_contour_merge": (_P,) * 17 + (_I,) * 4 + (_F, _P),
-    # f0, st, ed, n_sec, out, B, F, n, NS, lag, chunk, stream
-    "wt_contour_smooth": (_P,) * 5 + (_I,) * 6 + (_P,),
+    # keep, order, src (or NULL), s1, s2, ordered (or NULL), B, F, S, E,
+    # c_len, stream
+    "wt_contour_merge": (_P,) * 18 + (_I,) * 4 + (_F, _P),
+    # f0, st, ed, n_sec, out, ybuf, trace (or NULL), B, F, n, NS, lag,
+    # chunk, cap, stream
+    "wt_contour_smooth": (_P,) * 7 + (_I,) * 7 + (_P,),
 }
 
 

@@ -12,7 +12,9 @@ to the host and the main path can be captured as a CUDA graph.
     (src/harvest.cpp:427-536);
   - ``contour_smooth`` (``wt_contour_smooth``): smooth_f0_contour's
     per-section zero-lag Butterworth filter (the ``lax.while_loop`` at
-    :497-547), reference smoothF0Contour (src/harvest.cpp:639-703).
+    :497-547), reference smoothF0Contour (src/harvest.cpp:639-703):
+    the host float64 filter's bits, its chain cut short on the held edges,
+    where the biquad's state runs into an exact periodic orbit.
 
 Both take static section slots (their positions compacted with
 ``contour_device._positions``; a slot past the utterance's section count is
@@ -37,22 +39,32 @@ _SMOOTH_B = (0.0078202080334971724, 0.015640416066994345)
 _SMOOTH_A = (1.7347257688092754, -0.76600660094326412)
 _BIQUAD_BLOCK = 128
 
-#: the largest F whose merged rows (8 F bytes) kernel A keeps in shared
-#: memory (227 KB a block, less 1 KB of its static shared memory); longer
-#: contours take the global-memory variant
-MERGE_SHARED_MAX_F = (227 * 1024 - 1024) // 8
-#: kernel B's checkpoint spacing: at least this many samples, and at most
-#: SMOOTH_CHECKPOINTS checkpoints (its shared memory stays under 48 KB)
+#: the largest F whose merged row's sources (4 F bytes) kernel A keeps in
+#: shared memory (227 KB a block, less 1 KB of its static shared memory);
+#: longer contours take the global-memory variant
+MERGE_SHARED_MAX_F = (227 * 1024 - 1024) // 4
+#: kernel B's checkpoint spacing in a tail it runs in full: at least this
+#: many samples, and at most SMOOTH_CHECKPOINTS checkpoints
 SMOOTH_CHUNK = 128
 SMOOTH_CHECKPOINTS = 2048
 SMOOTH_MAX_CHUNK = 2048
+#: kernel B seeks the biquad's orbit on a held edge (and the backward
+#: pass's cycle) for this many steps, in blocks of 16, and keeps that many
+#: tail outputs in shared memory (beside 2 ceil(n / chunk) + chunk doubles
+#: of checkpoints and a chunk); past it (or with 0) the stretch runs in
+#: full
+SMOOTH_ORBIT_CAP = 1024
+#: kernel B's trace flags (contour_smooth_cuda(trace=True)[1][..., 1])
+SMOOTH_FLAGS = dict(prefix_orbit=1, tail_orbit=2, back_cycle=4,
+                    prefix_full=8, tail_full=16, back_full=32)
 
 
 def _trace(B, S, device):
     nan = torch.full((B, S), float("nan"), device=device)
     return dict(ssum=torch.zeros((B, S), device=device),
                 keep=torch.zeros((B, S), dtype=torch.bool, device=device),
-                s1=nan, s2=nan.clone())
+                s1=nan, s2=nan.clone(),
+                ordered=torch.zeros((B, S), dtype=torch.bool, device=device))
 
 
 def contour_merge(f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on, so,
@@ -75,7 +87,10 @@ def contour_merge(f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on, so,
         [B, F] float32; with ``trace`` also a dict of [B, S] rows: the
         section sums ``ssum`` and ``keep`` of each slot, and for merge
         step i the score sums ``s1``, ``s2`` that decided it (NaN where the
-        step was not contested).
+        step was not contested), and ``ordered``: the sections the kernel
+        summed in frame order (its exactness condition failed; all False
+        in the plain version, whose cumulative sum is in frame order
+        throughout).
     """
     args = (f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on, so)
     if device_kind(f0) == "cpu":
@@ -193,9 +208,10 @@ def contour_merge_plain(f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on,
 
 def contour_merge_cuda(f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on,
                        so, *, grid_ms=1, trace=False):
-    """Launch ``wt_contour_merge``: one block per utterance, its merged
-    rows in shared memory while F <= MERGE_SHARED_MAX_F, else in a global
-    scratch."""
+    """Launch ``wt_contour_merge``: one block per utterance (a warp a
+    section sum, warp 0 the running mean and the merge steps), the merged
+    row's sources in shared memory while F <= MERGE_SHARED_MAX_F, else in
+    a global scratch."""
     B, F = f0.shape
     S = st.shape[1]
     dev = f0.device
@@ -211,20 +227,22 @@ def contour_merge_cuda(f0, ss_run, ss_zero, st, ed, n_sec, vals, scs, n_on,
     for name, t in (("n_on", n_on), ("so", so)):
         _build.check_tensor(t, name, torch.int64, (B, 2 * S), dev)
     out = torch.empty_like(f0)
-    # the section sums are the kernel's workspace; the rest only a trace
-    tr = dict(ssum=torch.empty((B, S), dtype=torch.float32, device=dev))
+    # the section sums and decisions are the kernel's workspace; the rest
+    # only a trace
+    tr = dict(ssum=torch.empty((B, S), dtype=torch.float32, device=dev),
+              keep=torch.empty((B, S), dtype=torch.bool, device=dev))
     if trace:
-        tr["keep"] = torch.empty((B, S), dtype=torch.bool, device=dev)
         tr["s1"] = torch.empty((B, S), dtype=torch.float32, device=dev)
         tr["s2"] = torch.empty((B, S), dtype=torch.float32, device=dev)
+        tr["ordered"] = torch.empty((B, S), dtype=torch.bool, device=dev)
     order = torch.empty((B, S), dtype=torch.int32, device=dev)
-    rows = (None if F <= MERGE_SHARED_MAX_F else
-            torch.empty((B, 2, F), dtype=torch.float32, device=dev))
+    src = (None if F <= MERGE_SHARED_MAX_F else
+           torch.empty((B, F), dtype=torch.int32, device=dev))
     if B:
         _build.launch("wt_contour_merge", dev, f0, ss_run, ss_zero, st, ed,
                       n_sec, vals, scs, n_on, so, out, tr["ssum"],
-                      tr.get("keep"), order, rows, tr.get("s1"),
-                      tr.get("s2"), B, F, S, E, 2200.0 / grid_ms)
+                      tr["keep"], order, src, tr.get("s1"), tr.get("s2"),
+                      tr.get("ordered"), B, F, S, E, 2200.0 / grid_ms)
     return (out, tr) if trace else out
 
 
@@ -332,8 +350,13 @@ def smooth_chunk(n):
     return chunk
 
 
-def contour_smooth_cuda(f0, st, ed, n_sec):
-    """Launch ``wt_contour_smooth``: one block per (slot, utterance)."""
+def contour_smooth_cuda(f0, st, ed, n_sec, *, trace=False):
+    """Launch ``wt_contour_smooth``: a warp a live section, over a grid of
+    as many one-warp blocks as the SMs hold; the orbit and cycle search
+    runs SMOOTH_ORBIT_CAP steps (0: every stretch in full).  With ``trace``
+    also returns [B, NS, 4] int32: per live slot the steps its chain ran,
+    its SMOOTH_FLAGS, the tail's period and its orbit's start past e + 1
+    (-1: none); zeros elsewhere."""
     B, F = f0.shape
     NS = st.shape[1]
     dev = f0.device
@@ -344,7 +367,10 @@ def contour_smooth_cuda(f0, st, ed, n_sec):
     _build.check_tensor(n_sec, "n_sec", torch.int64, (B,), dev)
     chunk = smooth_chunk(n)
     out = torch.zeros_like(f0)
+    ybuf = torch.empty((B, n), dtype=torch.float64, device=dev)
+    tr = (torch.zeros((B, NS, 4), dtype=torch.int32, device=dev)
+          if trace else None)
     if B and NS:
-        _build.launch("wt_contour_smooth", dev, f0, st, ed, n_sec, out, B, F,
-                      n, NS, LAG, chunk)
-    return out
+        _build.launch("wt_contour_smooth", dev, f0, st, ed, n_sec, out, ybuf,
+                      tr, B, F, n, NS, LAG, chunk, SMOOTH_ORBIT_CAP)
+    return (out, tr) if trace else out

@@ -6,7 +6,8 @@
         # also times the earlier designs of the kernels whose sources DIR
         # holds (ola.cu: wt_ola without the pulse count; extend.cu;
         # zc_events.cu: one wt_zc_events call per band group; contour.cu:
-        # 8075e49's merge and smoothing) against the current ones, in turns
+        # 8075e49's merge and smoothing; seq_cumsum.cu: 60827b6's one
+        # thread a row) against the current ones, in turns
 
 Phases (any failure raises, so the exit code is not 0):
   1. environment: python/torch/CUDA versions and the card's name and power
@@ -102,8 +103,17 @@ Phases (any failure raises, so the exit code is not 0):
      sequential cumulative sum), counted from 0; both kernels against their
      plain versions at t22's shapes (OLA within 1e-12 relative of
      index_add_; every cumulative-sum launch of t22's D4C and Synthesis
-     equal to numpy.cumsum of its own input), their device
-     times, bounds and library calls (index_add_, torch.cumsum); float64
+     bit-equal to numpy.cumsum of its own input), their device
+     times, bounds and library calls (index_add_, torch.cumsum); the
+     latency of a dependent __dadd_rn (one thread, DADD_STEPS adds between
+     clock64 reads: cycles, ns, the SM clock) and, for the cumulative sum
+     at t22's largest launch, t22's time base and (after the next item)
+     the time base of phase 6's long utterance's float64 F0, the C entry's
+     launch plan against seqsum.plan, the device time alone, ns a step
+     against the add latency, the chain floor ((n - 1) x the latency) and
+     the bytes floor (the kernels line's bound is the larger), and with
+     --baseline holding seq_cumsum.cu the earlier design bit-equal and
+     timed in turns; float64
      Harvest at length: phase 6's long utterance through
      HarvestKernel.compute(dtype=torch.float64), its wall, peak device
      memory and agreement with phase 6's float32 F0 (voicing >= 0.97, F0
@@ -188,8 +198,9 @@ Phases (any failure raises, so the exit code is not 0):
      sequential cumulative sum as often as an eager step launches it),
      the OLA kernel's double instantiation on a chunk and a
      parallel group (1e-12 relative) and the sequential cumulative sum of
-     one chunk step (each launch equal to numpy.cumsum) against their plain
-     versions, and the first 150 s sequential (wall, realtime factor, the
+     one chunk step (each launch bit-equal to numpy.cumsum; the largest
+     timed as in phase 7, and with --baseline in turns with the earlier
+     design) against their plain versions, and the first 150 s sequential (wall, realtime factor, the
      float64 kernels' launches, no float32 kernel; peak within the 58.52 s
      run's plus the bytes that grow, plus 5%).  600 s in float64 is left
      out for the script's time;
@@ -225,7 +236,9 @@ kernel its launches in the main path's run (``launches_main``; zc_events,
 off the main path, counts ``launches`` in its own path's run), its largest
 difference from its plain version, its device time alone (``ms``), its
 wrapper-inclusive time (``call_ms``), its plain version's, its bound and
-what bounds it, the share bound/ms, and the library call's device time
+what bounds it (for the sequential cumulative sum the larger of its chain
+floor, n - 1 dependent adds at the measured latency, "operations", and
+its bytes; its ``cases`` give each timed launch), the share bound/ms, and the library call's device time
 (null where no single PyTorch call computes the function), and its
 launches in one pass of phase 8's corpus stream (``launches_corpus``), in
 phase 9's 600 s recording, counted in eager calls (LongHarvest's zc and
@@ -292,11 +305,14 @@ PEAK_F32_FLOP_S = 67e12
 # the C entries of the designs the current kernels replaced (--baseline),
 # by source: wt_ola without the pulse count, wt_extend as now, wt_zc_events
 # for one band group (filt, ev, ccol, n_rows, nb, lo, nb_g, L, e_cap, c_row,
-# n_cols, n_store), and 8075e49's contour kernels (wt_contour_merge without
+# n_cols, n_store), 8075e49's contour kernels (wt_contour_merge without
 # the ``ordered`` trace; wt_contour_smooth without the scratch row, the
-# trace and the cap: f0, st, ed, n_sec, out, B, F, n, NS, lag, chunk)
+# trace and the cap: f0, st, ed, n_sec, out, B, F, n, NS, lag, chunk), and
+# 60827b6's sequential cumulative sum (one thread a row; the entry as now)
 _CP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-OLD_ENTRIES = {"ola.cu": (("wt_ola", (_CP,) * 3 + (_CI,) * 4 + (_CP,)),),
+OLD_ENTRIES = {"seq_cumsum.cu": (("wt_seq_cumsum_f64",
+                                  (_CP, _CP, _CI, _CI, _CP)),),
+               "ola.cu": (("wt_ola", (_CP,) * 3 + (_CI,) * 4 + (_CP,)),),
                "extend.cu": (("wt_extend",
                               (_CP,) * 11 + (_CI,) * 6 + (_CF, _CP)),),
                "zc_events.cu": (("wt_zc_events",
@@ -525,6 +541,127 @@ def wall_ms(torch, fn, reps):
     return statistics.median(times)
 
 
+# dependent double adds of the latency probe (wt_dadd_latency)
+DADD_STEPS = 1 << 20
+
+
+def dadd_latency(torch, lib, dev):
+    """The latency of one dependent __dadd_rn on this card, the sequential
+    cumulative sum's floor a step: one thread runs DADD_STEPS dependent
+    adds between two clock64() reads (wt_dadd_latency).  Returns cycles a
+    step (clock64), ns a step (CUDA events around the launch), the SM clock
+    the two imply (MHz) and nvidia-smi's clocks.sm after the run."""
+    inp = torch.tensor([1.0, 2.0 ** -60], dtype=torch.float64, device=dev)
+    out = torch.empty(1, dtype=torch.float64, device=dev)
+    cyc = torch.empty(1, dtype=torch.int64, device=dev)
+
+    def run():
+        err = lib.wt_dadd_latency(inp.data_ptr(), out.data_ptr(),
+                                  cyc.data_ptr(), DADD_STEPS,
+                                  torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"wt_dadd_latency: CUDA launch failed ({err})")
+
+    run()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    run()
+    b.record()
+    torch.cuda.synchronize()
+    cycles = int(cyc.item()) / DADD_STEPS
+    ns = a.elapsed_time(b) * 1e6 / DADD_STEPS
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    if not float(out.item()) == 1.0 or not 0 < cycles < 1000:
+        raise AssertionError(f"the add latency probe: sum {out.item()!r}, "
+                             f"{cycles} cycles a step")
+    return dict(cycles=cycles, ns=ns, mhz=cycles / ns * 1e3, smi=smi)
+
+
+def bits_equal(a, b):
+    """numpy arrays equal bit for bit (-0.0 apart from +0.0), NaN where
+    NaN."""
+    na, nb = np.isnan(a), np.isnan(b)
+    return (a.shape == b.shape and np.array_equal(na, nb)
+            and np.array_equal(a[~na].view(np.int64), b[~nb].view(np.int64)))
+
+
+def cumsum_case(torch, cycles_per_ms, lib, old, seen, dadd, label, reps):
+    """One launch of the sequential cumulative sum, ``seen`` a captured
+    (entry, device, (x, out, n_rows, n)): its output bit-equal to
+    numpy.cumsum of its input; the C entry's plan (wt_seq_cumsum_plan)
+    equal to seqsum.plan; its device time alone and ns a step against the
+    add latency; the chain floor ((n - 1) dependent adds at dadd["ns"]) and
+    the bytes floor (input and output once at PEAK_BYTES_S); with ``old``
+    (a baseline library holding an earlier seq_cumsum.cu) the earlier
+    design's output bit-equal to this one's and both device times alone in
+    turns (old, new, new, old).  Raises on a failed gate; returns the
+    figures."""
+    from worldtpu_torch import _build
+    from worldtpu_torch.ops import seqsum
+    name, d, (cx, cout, n_rows, n) = seen
+    torch.cuda.synchronize()
+    got = cout.cpu().numpy().reshape(n_rows, n)
+    with np.errstate(invalid="ignore"):
+        want = np.cumsum(cx.cpu().numpy().reshape(n_rows, n), axis=-1)
+    sms = torch.cuda.get_device_properties(d).multi_processor_count
+    buf = (ctypes.c_int * 5)()
+    lib.wt_seq_cumsum_plan(n_rows, n, 0, ctypes.addressof(buf))
+    plan = seqsum.plan(n_rows, n, sms)
+    plan_c = (("rows", "long")[buf[0]],) + tuple(buf[1:])
+    exact = bits_equal(got, want)
+    r = dict(label=label, shape=[n_rows, n], regime=plan.regime,
+             rows_a_block=plan.rows, blocks=plan.blocks,
+             chain_floor_ms=(n - 1) * dadd["ns"] * 1e-6,
+             bytes_floor_ms=2 * n_rows * n * 8 / PEAK_BYTES_S * 1e3)
+    new_run = replayer(torch, _build, lib, [seen])
+    if old is None:
+        r["ms"] = device_ms(torch, cycles_per_ms, new_run, reps)
+        turns = ""
+    else:
+        o_out = torch.empty_like(cout)
+        old_seen = [(name, d, (cx, o_out, n_rows, n))]
+        old_run = replayer(torch, _build, old, old_seen)
+        old_run()
+        torch.cuda.synchronize()
+        r["old_same"] = torch.equal(o_out.view(torch.int64),
+                                    cout.view(torch.int64))
+        r["old_ms"], r["new_ms"] = [], []
+        for turn in ("old", "new", "new", "old"):
+            r[f"{turn}_ms"].append(device_ms(
+                torch, cycles_per_ms, old_run if turn == "old" else new_run,
+                reps))
+        r["ms"] = statistics.median(r["new_ms"])
+        turns = (f"; the earlier design (--baseline) bit-equal "
+                 f"{r['old_same']}, in turns (old, new, new, old): old "
+                 f"{[round(v, 4) for v in r['old_ms']]} ms, new "
+                 f"{[round(v, 4) for v in r['new_ms']]} ms")
+    r["step_ns"] = r["ms"] * 1e6 / max(n - 1, 1)
+    log(f"seq_cumsum, {label} {(n_rows, n)}: regime {plan.regime}, "
+        f"{plan.rows} rows a block, {plan.blocks} blocks, chunk "
+        f"{plan.chunk}, {plan.smem} B shared (C plan equal "
+        f"{plan_c == tuple(plan)}); bit-equal to numpy.cumsum {exact}; "
+        f"{r['ms']:.4f} ms device time alone = {r['step_ns']:.2f} ns a step "
+        f"= {r['step_ns'] / dadd['ns']:.2f}x the add latency "
+        f"{dadd['ns']:.3f} ns; chain floor {r['chain_floor_ms']:.4f} ms, "
+        f"bytes floor {r['bytes_floor_ms']:.4f} ms" + turns
+        + f"  [{card_line()}]")
+    if not exact or plan_c != tuple(plan) or not r.get("old_same", True):
+        raise AssertionError(f"the sequential cumulative sum at {label} "
+                             f"{(n_rows, n)}")
+    return r
+
+
+def cumsum_bound(case):
+    """(the larger of the chain and the bytes floor, what bounds it: the
+    chain's dependent adds are operations)."""
+    c, b = case["chain_floor_ms"], case["bytes_floor_ms"]
+    return (c, "operations") if c >= b else (b, "bytes")
+
+
 def read_wav(path):
     with wave.open(str(path)) as w:
         if w.getsampwidth() != 2 or w.getnchannels() != 1:
@@ -544,8 +681,8 @@ def main(argv=None):
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--baseline", type=pathlib.Path, default=None,
                      help="a directory with earlier ola.cu, extend.cu, "
-                          "zc_events.cu or contour.cu to time in turns with "
-                          "the current kernels")
+                          "zc_events.cu, contour.cu or seq_cumsum.cu to "
+                          "time in turns with the current kernels")
     ap_.add_argument("--mesh-rank", type=int, default=None,
                      help="internal: run one gloo rank of phase 11")
     ap_.add_argument("--mesh-dir", type=pathlib.Path, default=None,
@@ -597,7 +734,7 @@ def main(argv=None):
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds:.1f} s; flags {' '.join(_build.NVCC_FLAGS)}"
         f"; --fmad=true for {sorted(_build.FMAD)}, false for the rest)")
-    for stem in ("refine", "zc", "zc_events", "contour"):
+    for stem in ("refine", "zc", "zc_events", "contour", "seq_cumsum"):
         for line in _build.ptxas_report.get(stem, "").splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
@@ -1674,7 +1811,7 @@ def main(argv=None):
             got = cout.cpu().numpy().reshape(n_rows, n)
             c_shapes.append((n_rows, n))
             fin = np.isfinite(want)
-            if not np.array_equal(got, want, equal_nan=True):
+            if not bits_equal(got, want):
                 raise AssertionError(f"the sequential cumulative sum "
                                      f"disagrees with numpy.cumsum at "
                                      f"{(n_rows, n)}")
@@ -1683,34 +1820,41 @@ def main(argv=None):
             scan_same = scan_same and np.array_equal(par, want,
                                                      equal_nan=True)
         log(f"seq_cumsum: {len(c_seen)} launches of t22's float64 D4C and "
-            f"Synthesis, shapes {sorted(set(c_shapes))}: each equal to "
+            f"Synthesis, shapes {sorted(set(c_shapes))}: each bit-equal to "
             f"numpy.cumsum of its input True; torch.cumsum on the card (a "
             f"parallel scan) equal to it on all of them {scan_same}")
         if len(c_seen) < 2:
             raise AssertionError("the float64 D4C and Synthesis launched "
                                  "the sequential cumulative sum < 2 times")
+        # the chain's floor a step, then each regime at its path shape
+        dadd = dadd_latency(torch, lib, dev)
+        log(f"dependent __dadd_rn latency (one thread, {DADD_STEPS} adds "
+            f"between clock64 reads): {dadd['cycles']:.3f} cycles = "
+            f"{dadd['ns']:.4f} ns a step, an SM clock of {dadd['mhz']:.0f} "
+            f"MHz (nvidia-smi clocks.sm after it: {dadd['smi']})  [{card}]")
+        seq_old = old if "seq_cumsum.cu" in old_sources else None
         big = max(c_seen, key=lambda c: c[2][2] * c[2][3])
         row = max(c_seen, key=lambda c: c[2][3])
-        xs_t, row_t = big[2][0], row[2][0]
-        log(f"seq_cumsum on the time base's one row "
-            f"{(row[2][2], row[2][3])} (a single thread's chain): "
-            f"{alone_ms([row], 20):.4f} ms device time alone; the kernels "
-            f"line times the path's largest launch "
-            f"{(big[2][2], big[2][3])}  [{card}]")
+        xs_t = big[2][0]
+        seq_cases = [
+            cumsum_case(torch, cycles_per_ms, lib, seq_old, big, dadd,
+                        "t22's largest launch", 50),
+            cumsum_case(torch, cycles_per_ms, lib, seq_old, row, dadd,
+                        "t22's time base", 20)]
         results.append(dict(
             name="seq_cumsum", source="worldtpu_torch/csrc/seq_cumsum.cu",
             replaces="worldtpu/ops/filters.py:373",
             launches=f64_counts["wt_seq_cumsum_f64"],
             launches_main=counts.get("wt_seq_cumsum_f64", 0),
-            max_abs_err=c_worst, ms=alone_ms([big], 50),
+            max_abs_err=c_worst, ms=seq_cases[0]["ms"],
             call_ms=median_ms(
                 torch, lambda: seqsum.cumsum_sequential_cuda(xs_t), 20),
             plain_ms=median_ms(
                 torch, lambda: seqsum.cumsum_sequential_plain(xs_t), 5),
-            bound=bound(2 * nbytes(xs_t), xs_t.numel() * PEAK_F32_FLOP_S
-                        / PEAK_F64_FLOP_S),
+            bound=cumsum_bound(seq_cases[0]),
             library_ms=device_ms(torch, cycles_per_ms,
-                                 lambda: torch.cumsum(xs_t, -1), 50)))
+                                 lambda: torch.cumsum(xs_t, -1), 50),
+            dadd_latency=dadd, cases=seq_cases))
     for r in results[-2:]:
         b_ms, b_by = r["bound"]
         log(f"{r['name']}: kernel alone {r['ms']:.4f} ms (with its wrapper "
@@ -1718,6 +1862,13 @@ def main(argv=None):
             f"{b_ms:.4f} ms ({b_by}), share {b_ms / r['ms']:.3f}, library "
             f"{r['library_ms']:.4f} ms; launches on the float64 path "
             f"{r['launches']}  [{card}]")
+    sq = results[-1]
+    log(f"seq_cumsum on t22's largest launch "
+        f"{tuple(sq['cases'][0]['shape'])}: {sq['ms']:.4f} ms against "
+        f"torch.cumsum's {sq['library_ms']:.4f} ms (other bits): "
+        f"{'faster' if sq['ms'] < sq['library_ms'] else 'slower'}, "
+        f"{sq['library_ms'] / sq['ms']:.2f}x; its bound is the "
+        f"{sq['bound'][1]} floor  [{card}]")
 
     # float64 Harvest at length: phase 6's one long utterance through the
     # parity path on the card, against phase 6's float32 F0 of it (the
@@ -1781,6 +1932,24 @@ def main(argv=None):
         raise AssertionError("float64 Harvest at length disagrees with the "
                              "float32 F0 on the card")
 
+    # the time base of a float64 copy-synthesis of that utterance (its F0
+    # just computed): the long regime's one row of ~536,000 samples
+    with torch.no_grad():
+        f0_tb = torch.as_tensor(f0_l64, dtype=f64, device=dev)[None]
+        T_tb = int((f0_tb.shape[1] - 1) * 0.005 * FS) + 1
+        _, tb_seen = capture(_build, lambda: S._time_base(
+            f0_tb, FS, 0.005, T_tb, FS / ck.fft_size + 1.0,
+            S.default_max_pulses(T_tb, FS)))
+    tb_seen = [c for c in tb_seen if c[0] == "wt_seq_cumsum_f64"]
+    if len(tb_seen) != 1:
+        raise AssertionError("the float64 time base launched the "
+                             "sequential cumulative sum "
+                             f"{len(tb_seen)} times, not once")
+    seq_cases.append(cumsum_case(
+        torch, cycles_per_ms, lib, seq_old, tb_seen[0], dadd,
+        f"the {x_long.shape[0] / FS:.2f} s utterance's time base", 5))
+    del tb_seen, f0_tb
+
     # the CLI without --f32 (float64, the JAX CLI's default) on the card
     with tempfile.TemporaryDirectory() as td:
         pre, syn_w = (str(pathlib.Path(td) / n) for n in ("p64", "y64.wav"))
@@ -1828,7 +1997,8 @@ def main(argv=None):
     PG.clear()
     torch.cuda.empty_cache()
     f64_counts = long_audio_f64(torch, dev, card, cycles_per_ms, cut["x60"],
-                                cut["f0_x60"], cut["x150"])
+                                cut["f0_x60"], cut["x150"], old=seq_old,
+                                dadd=dadd, cases=seq_cases)
     for r in results:
         r["launches_grid2"] = grid_counts.get(C_ENTRY[r["name"]], 0)
         r["launches_f64_long"] = f64_counts.get(C_ENTRY[r["name"]], 0)
@@ -3608,16 +3778,20 @@ def grid_phase(torch, dev, card, cycles_per_ms, x, noise, kw, audio_s):
     return counts
 
 
-def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
+def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150,
+                   old=None, dadd=None, cases=None):
     """Phase 10(b): float64 long audio on the card.  One LongHarvest
     window's peak memory; on phase 9's parity cut x60,
     LongPipeline.copy_synthesis(dtype=torch.float64) sequential and
     parallel (walls, LongHarvest's split, peaks; F0 against phase 9's
     float32 LongHarvest f0_32 of the cut, parallel against sequential);
     the OLA kernel's double instantiation and the sequential cumulative
-    sum at the chunk shapes against their plain versions; x150 sequential
-    (wall, realtime factor, bounded memory).  Returns the launches of the
-    eager sequential synthesis loop over x60's chunks (from 0)."""
+    sum at the chunk shapes against their plain versions (its largest
+    launch through cumsum_case, with ``old`` a baseline library in turns,
+    ``dadd`` the add latency (measured here when None), the figures
+    appended to ``cases``); x150 sequential (wall, realtime factor, bounded
+    memory).  Returns the launches of the eager sequential synthesis loop
+    over x60's chunks (from 0)."""
     from worldtpu_torch import _build
     from worldtpu_torch import longaudio as LA
     from worldtpu_torch.analysis import longform as LF
@@ -3859,7 +4033,7 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
             want = np.cumsum(cx.cpu().numpy().reshape(n_rows, n), axis=-1)
             got = cout.cpu().numpy().reshape(n_rows, n)
             shapes.append((n_rows, n))
-            if not np.array_equal(got, want, equal_nan=True):
+            if not bits_equal(got, want):
                 raise AssertionError(f"the sequential cumulative sum "
                                      f"disagrees with numpy.cumsum at "
                                      f"{(n_rows, n)}")
@@ -3867,8 +4041,13 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
         xs_t = big[2][0]
         plain_same = torch.equal(seqsum.cumsum_sequential_plain(xs_t),
                                  seqsum.cumsum_sequential_cuda(xs_t))
-        c_ms = device_ms(torch, cycles_per_ms, replayer(
-            torch, _build, _build.library(), [big]), 20)
+        lib = _build.library()
+        big_case = cumsum_case(
+            torch, cycles_per_ms, lib, old, big,
+            dadd or dadd_latency(torch, lib, dev),
+            "(b) a float64 chunk step's largest launch", 20)
+        if cases is not None:
+            cases.append(big_case)
         # one replayed float64 chunk step (the same chunk) under the
         # profiler: a replay's launch counts are what its capture recorded,
         # the device trace shows the kernels it really ran
@@ -3884,10 +4063,12 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
             step()
         f_wall, f_acts, _ = stage_profile(torch, step)
         progs.clear()
+    # every __global__ of csrc/seq_cumsum.cu that the entry launches (its
+    # instantiations by chunk), once a launch
     f_tr = {nm: sum(1 for a in f_acts if re.search(pat, a[2]))
             for nm, pat in (("wt_ola_f64", r"ola_kernel<double>"),
                             ("wt_seq_cumsum_f64",
-                             r"(?<!\w)seq_cumsum_kernel\b"))}
+                             r"(?<!\w)seq_cumsum_kernel<\d+>"))}
     f_busy = sum(a[1] for a in f_acts)
     log(f"(b) one replayed float64 chunk step, profiled: wall {f_wall:.2f} "
         f"ms, device busy {f_busy:.2f} ms, {len(f_acts)} device activities;"
@@ -3902,7 +4083,8 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150):
     log(f"(b) seq_cumsum: {len(c_seen)} launches of one float64 chunk step, "
         f"shapes {sorted(set(shapes))}: each equal to numpy.cumsum of its "
         f"input True (tol 0); the largest {big[2][2:]} equal to the plain "
-        f"version {plain_same}, {c_ms:.4f} ms device time alone  [{card}]")
+        f"version {plain_same}, {big_case['ms']:.4f} ms device time alone  "
+        f"[{card}]")
     if len(c_seen) < 2 or not plain_same:
         raise AssertionError("the sequential cumulative sum at the float64 "
                              "chunk shapes")

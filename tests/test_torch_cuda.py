@@ -460,27 +460,112 @@ def test_ola_kernel_float64_matches_plain(dev, with_count):
     assert float(k[b, t]) == acc
 
 
-@pytest.mark.parametrize("shape", [(1, 50001), (141, 2169), (3, 7, 65),
-                                   (70, 1)])
+def _cumsum_data(shape, seed):
+    """Wide magnitudes (a reassociated sum differs in the last bits), by
+    row: a leading run of -0.0 then +0.0, subnormals only, +inf then -inf,
+    a NaN, or none of these (tests/test_torch_f64_ops.py's rows)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape) * 10.0 ** rng.uniform(-8, 8, shape)
+    rows = x.reshape(-1, shape[-1])
+    n = shape[-1]
+    for r in range(rows.shape[0]):
+        kind = r % 5
+        if kind == 0:
+            rows[r, :min(n, 37)] = -0.0
+            rows[r, min(n - 1, 37)] = 0.0
+        elif kind == 1:
+            rows[r] = rng.randint(-1000, 1000, n) * 5e-324
+        elif kind == 2:
+            rows[r, n // 2] = np.inf
+            rows[r, (3 * n) // 4] = -np.inf
+        elif kind == 3:
+            rows[r, n // 3] = np.nan
+    return x
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (-0.0 apart from +0.0), NaN where NaN."""
+    na, nb = np.isnan(a), np.isnan(b)
+    return (a.shape == b.shape and np.array_equal(na, nb)
+            and np.array_equal(a[~na].view(np.int64), b[~nb].view(np.int64)))
+
+
+# each side of the kernel's regime split and chunk edges, and the float64
+# path's own launches (D4C / LinearSmoothing frames, a chunk step's, the
+# time base of the main batch's geometry and of a 24.33 s utterance)
+SEQ_CUMSUM_SHAPES = ([(1, 50001), (141, 2169), (3, 7, 65), (70, 1)]
+                     + [(r, n) for r in (1, 2, 31, 33, 140, 280)
+                        for n in (1, 2, 575, 1025, 1207, 15325)]
+                     + [(280, 1025), (2026, 1025), (1013, 575), (8, 122791),
+                        (1, 536000)])
+
+
+@pytest.mark.parametrize("shape", SEQ_CUMSUM_SHAPES)
 def test_seq_cumsum_kernel_exact(dev, shape):
     """The sequential cumulative sum on the card equals numpy.cumsum (in
-    order, one rounding a step) bit for bit, on data whose reassociated sum
-    differs."""
-    rng = np.random.RandomState(6)
-    x = rng.randn(*shape) * 10.0 ** rng.uniform(-8, 8, shape)
+    order, one rounding a step) bit for bit, -0.0, +-inf, NaN and
+    subnormals included, on data whose reassociated sum differs."""
+    x = _cumsum_data(shape, 6)
     n0 = _build.launches["wt_seq_cumsum_f64"]
     got = TQ.cumsum_sequential(torch.tensor(x, device=dev))
     assert _build.launches["wt_seq_cumsum_f64"] == n0 + 1
     assert got.shape == x.shape and got.dtype == torch.float64
-    np.testing.assert_array_equal(got.cpu().numpy(), np.cumsum(x, axis=-1))
+    with np.errstate(invalid="ignore"):
+        want = np.cumsum(x, axis=-1)
+    assert _same_bits(got.cpu().numpy(), want)
     # a strided view is summed as its contiguous copy
     xt = torch.tensor(x, device=dev)
     if xt.dim() == 2 and xt.shape[0] > 1:
-        np.testing.assert_array_equal(
-            TQ.cumsum_sequential(xt[::2]).cpu().numpy(),
-            np.cumsum(x[::2], axis=-1))
+        assert _same_bits(TQ.cumsum_sequential(xt[::2]).cpu().numpy(),
+                          want[::2])
     with pytest.raises(ValueError, match="float64"):
         TQ.cumsum_sequential(xt.float())
+
+
+@pytest.mark.parametrize("shape", [(280, 1025), (2026, 1025), (1, 15325)])
+def test_seq_cumsum_graph_replay_equals_eager(dev, shape):
+    """The kernel captured in a CUDA graph (one launch, no sync, no
+    allocation inside it) replays to its eager launch's bits, and to
+    numpy.cumsum of new data copied into the captured input."""
+    x = torch.tensor(_cumsum_data(shape, 7), device=dev)
+    eager = TQ.cumsum_sequential(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        TQ.cumsum_sequential(x)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    n0 = _build.launches["wt_seq_cumsum_f64"]
+    with torch.cuda.graph(g):
+        out = TQ.cumsum_sequential(x)
+    assert _build.launches["wt_seq_cumsum_f64"] == n0 + 1
+    g.replay()
+    torch.cuda.synchronize()
+    assert _same_bits(out.cpu().numpy(), eager.cpu().numpy())
+    other = _cumsum_data(shape, 8)
+    x.copy_(torch.tensor(other, device=dev))
+    g.replay()
+    torch.cuda.synchronize()
+    with np.errstate(invalid="ignore"):
+        assert _same_bits(out.cpu().numpy(), np.cumsum(other, axis=-1))
+
+
+def test_seq_cumsum_plan_matches_c(dev):
+    """The C entry's launch plan (wt_seq_cumsum_plan) is seqsum.plan, for
+    a given SM count and for the device's own."""
+    import ctypes
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    regimes = ("rows", "long")
+    for r, n in [(280, 1025), (2026, 1025), (1013, 575), (140, 575),
+                 (1, 15325), (8, 122791), (1, 536000), (131, 4097),
+                 (132, 4097), (131, 4096), (70, 1), (5000, 3)]:
+        for ask, want in ((132, TQ.plan(r, n, 132)),
+                          (0, TQ.plan(r, n, sms))):
+            buf = (ctypes.c_int * 5)()
+            assert lib.wt_seq_cumsum_plan(r, n, ask,
+                                          ctypes.addressof(buf)) == 0
+            assert (regimes[buf[0]],) + tuple(buf[1:]) == tuple(want)
 
 
 def test_f64_path_on_card_matches_cpu(dev):

@@ -135,25 +135,192 @@ def test_int_truncation_and_fmod_signs():
                                   np.fmod(tot, two_pi))
 
 
-def test_cumsum_sequential_is_left_to_right():
-    """Bit-equal to a Python loop with one rounding per step, on data where
-    a pairwise (reassociated) sum differs in the last bits."""
-    rng = np.random.RandomState(2)
-    x = rng.randn(3, 4001) * 10.0 ** rng.uniform(-8, 8, (3, 4001))
-    want = np.empty_like(x)
-    for r in range(3):
-        acc = 0.0
-        for i, v in enumerate(x[r]):
-            acc = v if i == 0 else v + acc
-            want[r, i] = acc
+# the shapes on each side of the kernel's regime split (seqsum.plan: 132
+# rows, LONG_N columns) and of its chunk edges (128 and 1,024 columns after
+# the first)
+CUMSUM_ROWS = (1, 2, 31, 33, 140, 280)
+CUMSUM_LENGTHS = (1, 2, 575, 1025, 1207, 15325)
+
+
+def _cumsum_data(rows, n, seed):
+    """Rows of wide magnitudes (a reassociated sum differs in the last
+    bits), by row: a leading run of -0.0 then +0.0 (the sums stay -0.0, then
+    turn +0.0), subnormals only (exact sums), +inf then -inf (NaN after), a
+    NaN, or none of these."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(rows, n) * 10.0 ** rng.uniform(-8, 8, (rows, n))
+    for r in range(rows):
+        kind = r % 5
+        if kind == 0:
+            x[r, :min(n, 37)] = -0.0
+            x[r, min(n - 1, 37)] = 0.0
+        elif kind == 1:
+            x[r] = rng.randint(-1000, 1000, n) * 5e-324
+        elif kind == 2:
+            x[r, n // 2] = np.inf
+            x[r, (3 * n) // 4] = -np.inf
+        elif kind == 3:
+            x[r, n // 3] = np.nan
+    return x
+
+
+def _left_to_right(x):
+    """Each row summed left to right, one rounding a step (a loop over the
+    columns, every row at once)."""
+    out = np.empty_like(x)
+    acc = x[:, 0].copy()
+    out[:, 0] = acc
+    with np.errstate(invalid="ignore"):
+        for i in range(1, x.shape[1]):
+            acc = acc + x[:, i]
+            out[:, i] = acc
+    return out
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (-0.0 apart from +0.0), NaN where NaN (any
+    payload)."""
+    na, nb = np.isnan(a), np.isnan(b)
+    return (a.shape == b.shape and np.array_equal(na, nb)
+            and np.array_equal(a[~na].view(np.int64), b[~nb].view(np.int64)))
+
+
+@pytest.mark.parametrize("n", CUMSUM_LENGTHS)
+@pytest.mark.parametrize("rows", CUMSUM_ROWS)
+def test_cumsum_sequential_is_left_to_right(rows, n):
+    """Bit-equal to a loop with one rounding per step, -0.0, +-inf, NaN and
+    subnormals included, on data where a pairwise (reassociated) sum
+    differs in the last bits."""
+    x = _cumsum_data(rows, n, 1000 * rows + n)
+    want = _left_to_right(x)
     got = seqsum.cumsum_sequential(_t(x)).numpy()
-    np.testing.assert_array_equal(got, want)
-    assert got.shape == x.shape
-    assert not np.array_equal(got[:, -1], np.sum(x, axis=1))   # pairwise
+    assert _same_bits(got, want)
+    if rows >= 31 and n >= 575:
+        wide = [r for r in range(rows) if r % 5 in (0, 4)]
+        assert not np.array_equal(got[wide, -1],
+                                  np.sum(x[wide], axis=1))   # pairwise
     with pytest.raises(ValueError, match="float64"):
         seqsum.cumsum_sequential(torch.zeros(3, 4))
-    one = seqsum.cumsum_sequential(_t(x[0]))
-    np.testing.assert_array_equal(one.numpy(), want[0])
+    one = seqsum.cumsum_sequential(_t(x[-1]))
+    assert _same_bits(one.numpy(), want[-1])
+
+
+# the path's launches (D4C and LinearSmoothing frames, a float64 chunk
+# step's, the time base of t22, of the main batch and of 24.33 s)
+PATH_CUMSUM_SHAPES = ((140, 575), (280, 1025), (2026, 1025), (1013, 575),
+                      (1013, 1025), (1013, 1117), (1013, 1207), (1, 15325),
+                      (8, 122791), (1, 536000))
+
+
+def test_seq_cumsum_plan():
+    """The kernel's launch plan: every row in exactly one block; in the
+    rows regime a grid of at least min(n_rows, SMs) blocks; shared memory
+    within the 227 KB a block can have and the 48 KB it takes without an
+    attribute (so a CUDA graph can capture the launch); the long regime for
+    fewer rows than SMs past LONG_N columns."""
+    rng = np.random.RandomState(3)
+    shapes = (PATH_CUMSUM_SHAPES
+              + tuple((r, n) for r in CUMSUM_ROWS for n in CUMSUM_LENGTHS)
+              + tuple(zip(rng.randint(1, 100_000, 40),
+                          rng.randint(1, 600_000, 40))))
+    for sms in (seqsum.SMS, 114, 8):
+        for r, n in shapes:
+            p = seqsum.plan(int(r), int(n), sms)
+            blocks = [range(b * p.rows, min((b + 1) * p.rows, r))
+                      for b in range(p.blocks)]
+            assert sorted(i for blk in blocks for i in blk) == list(range(r))
+            assert all(len(blk) > 0 for blk in blocks)
+            assert p.regime == ("long" if r < sms and n > seqsum.LONG_N
+                                else "rows")
+            if p.regime == "rows":
+                assert p.blocks >= min(r, sms)
+                assert 1 <= p.rows <= seqsum.ROWS_MAX
+            else:
+                assert p.rows == 1 and p.blocks == r
+            # what a block takes without a function attribute (of 227 KB)
+            assert p.smem <= 48 * 1024
+            assert p.chunk % 32 == 0          # a warp stays on one row
+    got = {s: seqsum.plan(*s)[:4] for s in PATH_CUMSUM_SHAPES}
+    assert got[(280, 1025)] == ("rows", 2, 128, 140)
+    assert got[(2026, 1025)] == ("rows", 4, 128, 507)
+    assert got[(140, 575)] == ("rows", 1, 128, 140)
+    assert got[(1, 15325)] == ("long", 1, 1024, 1)
+    assert got[(8, 122791)] == ("long", 1, 1024, 8)
+
+
+def _kernel_model(x, sms):
+    """csrc/seq_cumsum.cu's schedule in numpy, from seqsum.plan: blocks of
+    ``rows`` rows; column 0 copied by the chain lane; columns 1..n-1 in
+    chunks through a ring of S = STAGES stages of pitch chunk + PAD, loaded
+    and stored by the producers' mapping (element e of a chunk: row e //
+    chunk, column e % chunk); chunks 0..S-2 loaded first; the chain over
+    chunk k in stage k % S while chunk k-1 is stored from, and chunk k+S-1
+    loaded into, stage (k - 1) % S.  Returns (out, how many times each
+    output was written); a stage starts as NaN, so a read of a value never
+    loaded shows."""
+    n_rows, n = x.shape
+    p = seqsum.plan(n_rows, n, sms)
+    C, P, S = p.chunk, p.chunk + seqsum.PAD, seqsum.STAGES
+    out = np.full_like(x, np.nan)
+    writes = np.zeros(x.shape, np.int64)
+    m = n - 1
+    n_chunks = -(-m // C)
+    for b in range(p.blocks):
+        r0 = b * p.rows
+        nr = min(p.rows, n_rows - r0)
+        smem = np.full((S, p.rows * P), np.nan)
+        e = np.arange(nr * C)
+        row, col = e // C, e % C
+
+        def moved(k):
+            ok = 1 + k * C + col < n
+            return row[ok], col[ok], 1 + k * C + col[ok]
+
+        def load(k, s):
+            rw, cl, j = moved(k)
+            smem[s, rw * P + cl] = x[r0 + rw, j]
+
+        def store(k, s):
+            rw, cl, j = moved(k)
+            out[r0 + rw, j] = smem[s, rw * P + cl]
+            np.add.at(writes, (r0 + rw, j), 1)
+
+        acc = x[r0:r0 + nr, 0].copy()
+        out[r0:r0 + nr, 0] = acc
+        writes[r0:r0 + nr, 0] += 1
+        for k in range(min(S - 1, n_chunks)):
+            load(k, k)
+        for k in range(n_chunks):
+            s, free = k % S, (k - 1) % S
+            # the stage refilled is neither the chain's nor one in flight
+            assert free not in {(k + i) % S for i in range(S - 1)}
+            lanes = np.arange(nr) * P
+            for c in range(min(C, m - k * C)):
+                acc = acc + smem[s, lanes + c]
+                smem[s, lanes + c] = acc
+            if k > 0:
+                store(k - 1, free)
+            if k + S - 1 < n_chunks:
+                load(k + S - 1, free)
+        if n_chunks:
+            store(n_chunks - 1, (n_chunks - 1) % S)
+    return out, writes
+
+
+@pytest.mark.parametrize("rows,n,sms", [
+    (40, 300, 4),      # rows regime, 10 rows a block, a partial last chunk
+    (9, 257, 4),       # 2 rows a block, a last block of one, full chunks
+    (3, 5000, 4),      # long regime, a partial fifth chunk
+    (5, 1, 4),         # no chunk: column 0 alone
+    (2, 129, 132),     # one full chunk
+    (1, 2, 132)])
+def test_seq_cumsum_kernel_model(rows, n, sms):
+    """The kernel's schedule (stages, chunks, the producers' mapping)
+    writes every output once and equals numpy.cumsum bit for bit."""
+    x = np.random.RandomState(rows + n).randn(rows, n) * 10.0 ** 4
+    out, writes = _kernel_model(x, sms)
+    assert (writes == 1).all()
+    assert _same_bits(out, np.cumsum(x, axis=-1))
 
 
 # ---------------------------------------------------------------------------

@@ -73,6 +73,11 @@ _SIGNATURES = {
     "wt_ola_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, out, n_rows, n, stream
     "wt_seq_cumsum_f64": (_P, _P, _I, _I, _P),
+    # n_rows, n, sms (0: the device's), out (host int[5]: regime, rows,
+    # chunk, blocks, shared bytes)
+    "wt_seq_cumsum_plan": (_I, _I, _I, _P),
+    # in (double[2] on the card: start, step), out, cycles (int64), n, stream
+    "wt_dadd_latency": (_P, _P, _P, _I, _P),
     # cand, score, origin, shift, live, distance, tmp0, vals, scs, n_on, so,
     # B, W, F, S, E, miss_lim, allowed_range, stream
     "wt_extend": (_P,) * 11 + (_I,) * 6 + (_F, _P),

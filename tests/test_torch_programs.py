@@ -333,9 +333,10 @@ def test_chunk_programs_make_no_host_transfer(plans, dtype, monkeypatch):
 
 def test_graph_cache_without_scale_and_with_a_pool(monkeypatch):
     """A graphs.Programs cache with a shared pool, called with no pitch
-    scale: the first call runs eagerly, the second captures with the
-    cache's pool and no scale buffer, later calls replay, a second key
-    captures with the same pool; clear() drops the programs and the pool;
+    scale: the first call runs eagerly, the second runs eagerly once more
+    (the warm-up) and captures with the cache's pool and no scale buffer,
+    later calls replay, a second key captures with the same pool; clear()
+    drops the programs and the pool;
     graphs.eager runs the function as call would, outside any cache.
     (Capture and replay stubbed: the cache's bookkeeping, on the CPU.)"""
     seen, pools = [], iter(["pool-1", "pool-2"])
@@ -364,7 +365,7 @@ def test_graph_cache_without_scale_and_with_a_pool(monkeypatch):
     progs = TG.Programs(shared_pool=True)
     outs = [progs.call(fn, (x,), dtypes=TLA._DTYPES, tag=1)
             for _ in range(3)]
-    assert seen == [("eager", 1), ("capture", None, "pool-1"),
+    assert seen == [("eager", 1), ("eager", 1), ("capture", None, "pool-1"),
                     ("replay", None), ("replay", None)]
     assert outs[1:] == [("replayed",)] * 2
     assert torch.equal(outs[0][0], x + 1)

@@ -91,6 +91,9 @@ _SIGNATURES = {
     # f0, st, ed, n_sec, out, ybuf, trace (or NULL), B, F, n, NS, lag,
     # chunk, cap, stream
     "wt_contour_smooth": (_P,) * 7 + (_I,) * 7 + (_P,),
+    # mark (2 * stage + 0 at entry, + 1 at exit), stream; launched by
+    # tracing.stage, never through launch(), so never counted
+    "wt_mark": (_I, _P),
 }
 
 

@@ -9,9 +9,9 @@ The internal candidate grid is the reference's 1 ms grid; float32 callers
 may pass ``grid`` (``grid_ms`` on the classes) = k > 1 for a k ms grid, the
 JAX package's ``WORLDTPU_GRID_MS`` fast mode as an argument: every
 per-frame stage and the contour chain then run on 1/k of the frames.  Each
-stage of the main path runs inside a ``torch.profiler.record_function``
-range named ``wt.<stage>``, so one profiled call gives the time of every
-stage.
+stage of the main path runs inside ``tracing.stage``: a host range named
+``wt.<stage>`` and, on the card, device marks that a replayed graph keeps,
+so one profiled call gives the time of every stage.
 
 float32 is the production path above.  float64 is the parity path, with the
 reference's literal semantics and no hand-written kernel (the JAX package's
@@ -28,7 +28,6 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as Fn
-from torch.profiler import record_function
 
 from worldtpu_torch import constants as C
 from worldtpu_torch.ops import filters
@@ -38,6 +37,7 @@ from worldtpu_torch.ops.fftutil import get_suitable_fft_size
 from worldtpu_torch.ops.interp import interp1
 from worldtpu_torch.ops.numeric import device_cache, matlab_round, rdiv
 from worldtpu_torch.parallel import graphs as _graphs
+from worldtpu_torch.tracing import stage
 
 #: near-duplicate candidate tolerance of the production refine
 #: (worldtpu.analysis.harvest.REFINE_DEDUP_TOL)
@@ -409,11 +409,11 @@ def candidates_stage(y, mean_y, geo):
         raw = _raw_candidates_f64(y - mean_y[:, None], geo, tpos)
         base = _detect_candidates(raw, geo)
         return _overlap_candidates(base), raw, base
-    with record_function("wt.band_filter"):
+    with stage("band_filter", y.device):
         filt = band_filter(y - mean_y[:, None], geo)
-    with record_function("wt.zc"):
+    with stage("zc", y.device):
         raw = _zc.band_candidates(filt, geo)
-    with record_function("wt.detect_overlap"):
+    with stage("detect_overlap", y.device):
         base = _detect_candidates(raw, geo)
         return _overlap_candidates(base), raw, base
 
@@ -600,7 +600,7 @@ def harvest_device_stages(x, mean_y, *, geo, grid=1):
     slots for float64."""
     check_grid(x.dtype, grid)
     geo_k = geo.with_grid(grid)
-    with record_function("wt.decimate"):
+    with stage("decimate", x.device):
         y = decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
     if x.dtype == torch.float64:
         return _stages_f64(y, mean_y, geo)
@@ -618,7 +618,7 @@ def prune_compacted(cand, score):
     candidates and scores: refined candidates fill the first CAP slots and
     the rest are zero; a zero neighbour gives relative error exactly 1.0,
     the clamp value, so pruning over the leading slots is exact."""
-    with record_function("wt.prune"):
+    with stage("prune", cand.device):
         S = cand.shape[-1]
         w = min(S, _refine.CAP)
         c, s = remove_unreliable_stage(cand[..., :w].contiguous(),
@@ -637,7 +637,7 @@ def harvest_device_full(x, mean_y, *, geo, n_out, grid=1):
         return harvest_parity(x, geo=geo)
     from worldtpu_torch.analysis import contour_device as CDV
     cand, score = harvest_device_stages(x, mean_y, geo=geo, grid=grid)
-    with record_function("wt.contour"):
+    with stage("contour", x.device):
         return CDV.fix_and_smooth(cand, score, n_out, geo.frame_period,
                                   grid_ms=grid)
 

@@ -17,12 +17,12 @@ import math
 
 import torch
 import torch.nn.functional as Fn
-from torch.profiler import record_function
 
 from worldtpu_torch import constants as C
 from worldtpu_torch import _build
 from worldtpu_torch.ops.numeric import (device_cache, device_kind,
                                         matlab_round, rdiv)
+from worldtpu_torch.tracing import stage
 
 CAP = 64  # refined-slot capacity per frame (observed active max ~37)
 
@@ -34,12 +34,12 @@ _PLAIN_FRAMES = {"cpu": 32, "cuda": 512}
 def refine_stage(y, cand, tpos, *, geo, dedup_tol=0.0):
     """Refine candidates cand [B, F, S] against the decimated signal
     y [B, L] at frame times tpos [F].  Returns (refined, score) [B, F, S]."""
-    with record_function("wt.refine_prepare"):
+    with stage("refine_prepare", y.device):
         prep = prepare(y, cand, tpos, geo=geo, dedup_tol=dedup_tol)
-    with record_function("wt.refine_sums"):
+    with stage("refine_sums", y.device):
         sums = spectral_sums(*prep["kernel_args"],
                              hwmax=geo.max_half_window, n_fft=geo.refine_fft)
-    with record_function("wt.refine_finish"):
+    with stage("refine_finish", y.device):
         return finish(sums, prep, geo=geo)
 
 

@@ -45,7 +45,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as Fn
-from torch.profiler import record_function
 
 from worldtpu_torch.analysis import harvest as _hv
 from worldtpu_torch.analysis.cheaptrick import cheaptrick_frames
@@ -55,6 +54,7 @@ from worldtpu_torch.ops import zc_kernel as _zc
 from worldtpu_torch.ops.numeric import device_cache
 from worldtpu_torch.parallel import graphs as _graphs
 from worldtpu_torch.synthesis import synthesis as _syn
+from worldtpu_torch.tracing import stage
 
 MESH_DIMS = ("data", "time")
 
@@ -329,7 +329,7 @@ def _harvest_f0_local(x, geo, n_out, mesh, grid):
         return _hv.harvest_parity(x, geo=geo)
     from worldtpu_torch.analysis import contour_device as CDV
     cand, score = _stages_local(x, geo, mesh, grid)
-    with record_function("wt.contour"):
+    with stage("contour", x.device):
         return CDV.fix_and_smooth(cand, score, n_out, geo.frame_period,
                                   grid_ms=grid)
 
@@ -362,17 +362,17 @@ def _stages_local(x, geo, mesh, grid):
     nt, t = _time_coords(mesh)
     geo_k = geo.with_grid(grid)
     F = geo_k.f0_length
-    with record_function("wt.decimate"):
+    with stage("decimate", x.device):
         y = _hv.decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
     bands, n_pad, bounds = _band_shard(geo_k, t, nt, x.device)
-    with record_function("wt.band_filter"):
+    with stage("band_filter", x.device):
         filt = _hv.band_filter(y, geo_k, bands)
         if n_pad:
             filt = torch.cat([filt, filt.new_zeros(
                 (filt.shape[0], n_pad, filt.shape[2]))], dim=1)
-    with record_function("wt.zc"):
+    with stage("zc", x.device):
         raw = _zc.band_candidates(filt, geo_k, bounds)
-    with record_function("wt.detect_overlap"):
+    with stage("detect_overlap", x.device):
         # gathered rows are (time rank t, row j) <-> global band t + j*nt
         raw = _gather_time(raw[:, :, None], mesh, axis=2)
         raw = raw.reshape(raw.shape[0], -1, F)[:, :geo.n_channels]
@@ -413,10 +413,10 @@ def _scaled_f0(x, geo, scale, grid_ms):
 
 def _analysis(x, f0, tpos, *, fs, fft_size, max_half_window):
     """CheapTrick and D4C of x [B, T] at F0 [B, F]: (spec, ap)."""
-    with record_function("wt.cheaptrick"):
+    with stage("cheaptrick", x.device):
         spec = cheaptrick_frames(x, f0, tpos, fs=fs, fft_size=fft_size,
                                  max_half_window=max_half_window)
-    with record_function("wt.d4c"):
+    with stage("d4c", x.device):
         ap = d4c_frames(x, f0, tpos, fs=fs, fft_size_out=fft_size)
     return spec, ap
 

@@ -48,6 +48,15 @@ them, so a replayed call counts what an eager one counts.  These counts
 are bookkeeping; ``chip_smoke.py`` checks them against the kernels that a
 profiled replay ran on the device.
 
+Spans (``tracing.graph_span``): each ``Programs.call`` opens one
+outermost host range, ``wt.graph.eager`` (a key's first call, or tensors
+that are not capturable), ``wt.graph.capture`` (a key's second call:
+``wt.graph.warm`` the eager warm-up, ``wt.graph.record`` the capture
+itself, ``wt.graph.evict`` the least recently used program's drop when
+the cache is full, then the first replay) or ``wt.graph.replay``.  The
+stages inside a captured call mark the device but open no host range, so
+the recording's host time falls on ``wt.graph.record``.
+
 Only CUDA tensors take this route, and only with floating tensors of the
 caller's ``dtypes`` (float32 unless it says otherwise: the float64 batch
 programs sync the host for their mean and contour); CPU tensors run
@@ -63,6 +72,7 @@ import torch
 
 from worldtpu_torch import _build
 from worldtpu_torch.ops.numeric import pinning
+from worldtpu_torch.tracing import graph_span
 
 #: captured programs a cache keeps (the global one: the main path's two,
 #: the corpus stream's one per padded length, HarvestKernel.forward's)
@@ -138,9 +148,10 @@ def _args(tensors, scale):
 
 
 def _capture(fn, tensors, scale, static, pool=None):
+    """Record fn over clones of ``tensors`` into a ``_Program`` (the
+    caller has run fn once eagerly: that filled the caches capture reads)."""
     inputs = [t.clone() for t in tensors]
     args, buf = _args(inputs, scale)
-    fn(*args, **static)                   # fills the caches capture reads
     before = [collections.Counter(c) for c in _counters()]
     # the capture empties the allocator's cache on entry: what is reserved
     # after it beyond this is the program's pool
@@ -186,25 +197,33 @@ class Programs:
         tensors): eagerly, or through the key's captured program when the
         tensors are ``capturable`` with ``dtypes``."""
         if not capturable(tensors, dtypes):
-            return eager(fn, tensors, scale, **static)
+            with graph_span("eager"):
+                return eager(fn, tensors, scale, **static)
         key = make_key(fn, tensors, static)
         prog = self._programs.get(key)
-        if prog is None:
-            if key not in self._warm:
-                self._warm[key] = None
-                while len(self._warm) > MAX_PROGRAMS:
-                    self._warm.popitem(last=False)
+        if prog is not None:
+            self._programs.move_to_end(key)
+            with graph_span("replay"):
+                return prog.replay(tensors, scale)
+        if key not in self._warm:
+            self._warm[key] = None
+            while len(self._warm) > MAX_PROGRAMS:
+                self._warm.popitem(last=False)
+            with graph_span("eager"):
                 return eager(fn, tensors, scale, **static)
+        with graph_span("capture"):
             del self._warm[key]
+            with graph_span("warm"):
+                eager(fn, tensors, scale, **static)
             if self.shared_pool and self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            prog = _capture(fn, tensors, scale, static, self._pool)
+            with graph_span("record"):
+                prog = _capture(fn, tensors, scale, static, self._pool)
             self._programs[key] = prog
             while len(self._programs) > MAX_PROGRAMS:
-                self._programs.popitem(last=False)
-        else:
-            self._programs.move_to_end(key)
-        return prog.replay(tensors, scale)
+                with graph_span("evict"):
+                    self._programs.popitem(last=False)
+            return prog.replay(tensors, scale)
 
     def keys(self):
         """The keys of the captured programs, least recently used first."""

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from worldtpu_torch import constants as C
 from worldtpu_torch.ops import dft, trig
@@ -25,6 +24,7 @@ from worldtpu_torch.ops.fftutil import minimum_phase
 from worldtpu_torch.ops.interp import interp1
 from worldtpu_torch.ops.ola_kernel import overlap_add
 from worldtpu_torch.ops.seqsum import cumsum_sequential
+from worldtpu_torch.tracing import stage
 
 _Q32 = 4294967296.0
 
@@ -208,12 +208,12 @@ def synthesis_frames_impl(f0, spectrogram, aperiodicity, noise, *, fs,
         — overflowed marks a true pulse count above max_pulses (tail pulses
         dropped; regrow max_pulses and rerun).
     """
-    with record_function("wt.pulse_train"):
+    with stage("pulse_train", f0.device):
         resp, starts, n_pulses, overflowed = pulse_train(
             f0, spectrogram, aperiodicity, noise, fs=fs, fft_size=fft_size,
             frame_period_s=frame_period_s, out_length=out_length,
             max_pulses=max_pulses)
-    with record_function("wt.ola"):
+    with stage("ola", f0.device):
         y = overlap_add(resp, starts, out_length, n_pulses)
     return (y, overflowed) if return_overflow else y
 

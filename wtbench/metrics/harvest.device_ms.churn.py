@@ -1,0 +1,13 @@
+"""Stages: Harvest (``analysis/harvest.py``, ``parallel/batch.py``,
+``ops/refine_kernel.py``, ``analysis/contour_device.py``): device ms a batch
+under its nine stages, decimate to contour (the device activities between
+the program's stage marks, ``stages.split``), over the traced pass's
+batches; in a corpus pass whose keys outnumber the graph cache's programs
+(eager calls and captures beside replays; the cells that report
+``rtf.churn``)."""
+
+from wtbench import stages
+
+
+def read(result):
+    return stages.device_ms(result, stages.HARVEST)

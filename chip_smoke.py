@@ -22,9 +22,9 @@ Phases (any failure raises, so the exit code is not 0):
      synthesis), static pulse capacity, through the graph cache
      (parallel/graphs.py: the first call eager, the second captured and
      replayed, later calls replayed); checks shape, finiteness, level,
-     pulse overflow, that the zc, refine, OLA, extend and the two contour
-     kernels each ran once a batch, eagerly (counted at the wrappers; the
-     kernels line's launches) and replayed (the capture's recorded counts,
+     pulse overflow, that the zc, refine, OLA, extend, pulse-response and
+     the two contour kernels each ran once a batch, eagerly (counted at the
+     wrappers; the kernels line's launches) and replayed (the capture's recorded counts,
      and each kernel once in a profiled replay's device trace), and which
      event layout zc used; the replayed F0, y and overflow flags bit-equal
      to the eager program's, also for a second, equal geometry object and
@@ -48,7 +48,11 @@ Phases (any failure raises, so the exit code is not 0):
      plain version's; the kernel's bound (the larger of its bytes over
      3.35 TB/s and its operations over 67 TFLOP/s, counted from this run's
      inputs) and, for OLA, the one PyTorch call that computes the same sums
-     (index_add_, device time alone); OLA's real and padding pulses,
+     (index_add_, device time alone); the pulse-response kernel against
+     the plain chain it replaced (each real row's relative RMS within
+     PULSE_ROW_REL, padded rows zero, the voicing gate equal), with the
+     chain's own device time alone as the old design; OLA's real and
+     padding pulses,
      extend's longest walk and device time per step of it (the chain's
      floor); the zc phase-1 entry (zc_kernel.zc_events, the zc events
      kernel's path, driven with the counts set to 0) and the zc split
@@ -286,6 +290,7 @@ DUR = 1.25
 REFINE_REL = 1e-5      # DFT sums, abs error over the largest |sum|
 REFINE_F0_REL = 1e-4   # refined F0, relative, where both are nonzero
 OLA_ATOL, OLA_RTOL = 1e-5, 1e-4
+PULSE_ROW_REL = 1e-5   # pulse responses: each row's relative RMS
 OLA_F64_REL = 1e-12    # float64 OLA vs index_add_, of the largest |y|
 
 # float64 on the card against the C++ dumps: (gate on the card, what the CPU
@@ -711,8 +716,8 @@ def main(argv=None):
                                                     cheaptrick_frames)
     from worldtpu_torch.analysis import contour_device as CDV
     from worldtpu_torch.analysis.d4c import d4c_frames
-    from worldtpu_torch.ops import (extend_kernel, ola_kernel, refine_kernel,
-                                    zc_kernel)
+    from worldtpu_torch.ops import (extend_kernel, ola_kernel, pulse_kernel,
+                                    refine_kernel, zc_kernel)
     from worldtpu_torch.parallel import batch as PB, graphs as PG
     from worldtpu_torch.parallel.batch import (batch_analyze,
                                                batch_wav_to_wav, pad_batch)
@@ -1101,6 +1106,14 @@ def main(argv=None):
             launches_main=counts["wt_ola"], max_abs_err=oerr, ms=o_ms,
             call_ms=o_call, plain_ms=o_plain, bound=o_bound,
             library_ms=o_lib))
+        del resp, ok_, op
+        results.append(pulse_row(torch, _build, S, pulse_kernel, alone_ms,
+                                 cycles_per_ms, card, counts, dict(
+                                     f0=f0, spectrogram=spec,
+                                     aperiodicity=ap, noise=noise, fs=FS,
+                                     fft_size=ck.fft_size,
+                                     frame_period_s=0.005 * DUR,
+                                     out_length=out_len, max_pulses=mp)))
 
         # the extend walk on the batch's own walks: the arguments the
         # contour chain passes (one call per chain)
@@ -1389,8 +1402,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     log("library_ms null: no single PyTorch call computes the zc "
         "candidates, the refine sums, the extend walk, the zc events, the "
-        "contour's section filter and merge or its per-section smoothing "
-        "from their inputs")
+        "contour's section filter and merge, its per-section smoothing or "
+        "the pulse responses from their inputs")
     for r in results:
         b_ms, b_by = r["bound"]
         log(f"{r['name']}: kernel alone {r['ms']:.4f} ms (with its wrapper "
@@ -1601,7 +1614,8 @@ def main(argv=None):
         raise AssertionError("World.copy_synthesis output")
     entry_counts = dict(_build.launches)
     log(f"entry points' launches: {entry_counts}")
-    for k in ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend"):
+    for k in ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend",
+              "wt_pulse_resp"):
         if entry_counts.get(k, 0) < 1:
             raise AssertionError(f"kernel {k} not launched by the entry "
                                  f"points")
@@ -1739,7 +1753,7 @@ def main(argv=None):
             raise AssertionError(f"kernel {k} not launched by the float64 "
                                  f"path")
     if any(k in f64_counts for k in ("wt_zc", "wt_refine_sums", "wt_ola",
-                                     "wt_extend")):
+                                     "wt_extend", "wt_pulse_resp")):
         raise AssertionError("the float64 path launched a float32 kernel")
 
     # the float64 path's two kernels at t22's shapes against their plain
@@ -2027,11 +2041,126 @@ def main(argv=None):
     return 0
 
 
+def pulse_row(torch, _build, S, PK, alone_ms, cycles_per_ms, card, counts,
+              train):
+    """The pulse-responses kernel at the main path's shapes (the arguments
+    pulse_train hands it, ``train`` being pulse_train's): against the plain
+    chain with irfft as defined (padded rows zero, each real row's relative
+    RMS within PULSE_ROW_REL, the voicing gate equal: with zero noise a row
+    is zero exactly where it is off or ns is 0; the plain chain with
+    cuFFT's own irfft printed beside it), its device time alone, with its
+    wrapper, the plain chain's host-inclusive time and its device time
+    alone (the design it replaced), the real pulses' share, the bound.
+
+    irfft as defined (numpy, pocketfft, FFTW, the CPU's torch.fft): a real
+    signal's transform takes only the real parts of bins 0 and n/2.  For
+    some plans cuFFT's complex-to-real transform also reads the imaginary
+    part of bin n/2, which the periodic spectrum has (its phase's |sin| is
+    not 0 there); the kernel follows the definition."""
+    from worldtpu_torch.ops import dft
+
+    def irfft_defined(X, n=None):
+        X = X.clone()
+        X[..., 0] = X[..., 0].real.to(X.dtype)
+        X[..., -1] = X[..., -1].real.to(X.dtype)
+        return torch.fft.irfft(X, n=n, dim=-1)
+
+    def plain_defined(*a, **k):
+        real_irfft, dft.irfft = dft.irfft, irfft_defined
+        try:
+            return PK.pulse_responses_plain(*a, **k)
+        finally:
+            dft.irfft = real_irfft
+
+    seen = []
+    real = PK.pulse_responses_cuda
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+
+    PK.pulse_responses_cuda = spy
+    try:
+        S.pulse_train(**train)
+    finally:
+        PK.pulse_responses_cuda = real
+    (a, k), = seen
+    pk, p_seen = capture(_build, lambda: PK.pulse_responses_cuda(*a, **k))
+    valid, ns = a[4], a[2]
+    rels = {}
+    for nm, fn in (("cuFFT's irfft", PK.pulse_responses_plain),
+                   ("irfft as defined", plain_defined)):
+        pp = fn(*a, **k)
+        norm = pp.norm(dim=-1)
+        live = valid & (norm > 0)
+        rel = torch.zeros_like(norm)
+        rel[live] = (pk - pp).norm(dim=-1)[live] / norm[live]
+        rels[nm] = rel
+        worst = rel.flatten().argsort()[-3:].tolist()
+        log(f"pulse vs the plain chain with {nm}: row relative RMS max "
+            f"{float(rel.max()):.2e}, median {float(rel[live].median()):.2e}"
+            f"; worst rows (b, p, rel, ns, vuv_at, pt, |row|): "
+            + "; ".join(f"({i // rel.shape[1]}, {i % rel.shape[1]}, "
+                        f"{float(rel.flatten()[i]):.2e}, "
+                        f"{int(ns.flatten()[i])}, "
+                        f"{float(a[3].flatten()[i]):g}, "
+                        f"{float(a[0].flatten()[i]):.4f}, "
+                        f"{float(norm.flatten()[i]):.3e})" for i in worst))
+    err = float((pk - pp).abs().max())
+    pad_zero = bool((pk[~valid] == 0).all())
+    zero_same = bool((pk[valid & (norm == 0)] == 0).all())
+    quiet = list(a)
+    quiet[7] = torch.zeros_like(a[7])
+    g0 = PK.pulse_responses_cuda(*quiet, **k).abs().amax(-1) > 0
+    w0 = plain_defined(*quiet, **k).abs().amax(-1) > 0
+    gate_flips = int((g0 != w0).sum())
+    n_real, total = int(valid.sum()), valid.numel()
+    worst = float(rels["irfft as defined"].max())
+    log(f"pulse: {tuple(pk.shape)}; {n_real} real pulses of {total} "
+        f"({100 * n_real / total:.1f}%); row relative RMS max {worst:.2e} "
+        f"(tol {PULSE_ROW_REL}, irfft as defined); max abs err {err:.3e}; "
+        f"padded rows zero {pad_zero}, zero rows kept {zero_same}; "
+        f"voicing-gate flips {gate_flips} (tol 0)")
+    if worst > PULSE_ROW_REL or not pad_zero or not zero_same or gate_flips:
+        raise AssertionError("pulse kernel disagrees with its plain version")
+    del pp, g0, w0, quiet, rels
+    ms = alone_ms(p_seen, 30)
+    call = median_ms(torch, lambda: PK.pulse_responses_cuda(*a, **k), 10)
+    plain = median_ms(torch, lambda: PK.pulse_responses_plain(*a, **k), 3)
+    old = device_ms(torch, cycles_per_ms,
+                    lambda: PK.pulse_responses_plain(*a, **k), 3)
+    n = pk.shape[2]
+    kb = n // 2 + 1
+    # a real pulse reads its two rows of each spectral array and its noise
+    # samples and writes its row; a padded pulse writes its zero row; every
+    # pulse's five scalars are read.  Operations: three n-point and one
+    # n/2-point complex FFT (5 m log2 m each) and ~8 per bin
+    p_bytes = (n_real * (16 * kb + 4 * n)
+               + 4 * int(ns[valid].clamp(max=n).sum())
+               + (total - n_real) * 4 * n + 21 * total)
+    lg = n.bit_length() - 1
+    p_ops = n_real * (15 * n * lg + 5 * (n // 2) * (lg - 1) + 8 * kb)
+    b = bound(p_bytes, p_ops)
+    log(f"pulse: kernel alone {ms:.4f} ms, the plain chain (the design it "
+        f"replaced) {old:.4f} ms device alone, {plain:.3f} ms with its "
+        f"host; bytes needed {p_bytes / 1e6:.1f} MB, {p_ops / 1e9:.2f} GFLOP"
+        f"  [{card}]")
+    return dict(name="pulse", source="worldtpu_torch/csrc/pulse.cu",
+                replaces="none (worldtpu/synthesis/synthesis.py, left to "
+                         "XLA)",
+                launches=counts["wt_pulse_resp"],
+                launches_main=counts["wt_pulse_resp"], max_abs_err=err,
+                ms=ms, call_ms=call, plain_ms=plain, bound=b,
+                library_ms=None, old_design_ms=old,
+                real_pulses=n_real, pulses=total)
+
+
 # the symbol of each kernel's __global__ function in csrc/ (one a launch)
 KERNEL_SYMBOLS = {"wt_zc": "zc_kernel", "wt_refine_sums": "refine_kernel",
                   "wt_ola": "ola_kernel", "wt_extend": "extend_kernel",
                   "wt_contour_merge": "merge_kernel",
-                  "wt_contour_smooth": "smooth_kernel"}
+                  "wt_contour_smooth": "smooth_kernel",
+                  "wt_pulse_resp": "pulse_kernel"}
 # geometries run eagerly between a capture and its replay: more than any
 # device constant cache holds (ops.numeric.device_cache, 32 at most)
 EVICT_GEOMETRIES = 36
@@ -2514,14 +2643,17 @@ def contour_rows(torch, cycles_per_ms, card, margs, mkw, sargs, counts):
 
 # the C entry of each kernel of the kernels line
 C_ENTRY = {"zc": "wt_zc", "refine": "wt_refine_sums", "ola": "wt_ola",
+           "pulse": "wt_pulse_resp",
            "extend": "wt_extend", "zc_events": "wt_zc_events",
            "ola_f64": "wt_ola_f64", "seq_cumsum": "wt_seq_cumsum_f64",
            "contour_merge": "wt_contour_merge",
            "contour_smooth": "wt_contour_smooth"}
 MAIN_KERNELS = ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend",
-                "wt_contour_merge", "wt_contour_smooth")
-# the kernels of HarvestKernel.forward (the main path's but OLA)
-HARVEST_KERNELS = tuple(k for k in MAIN_KERNELS if k != "wt_ola")
+                "wt_contour_merge", "wt_contour_smooth", "wt_pulse_resp")
+# the kernels of HarvestKernel.forward (the main path's but the synthesis')
+SYNTHESIS_KERNELS = ("wt_ola", "wt_pulse_resp")
+HARVEST_KERNELS = tuple(k for k in MAIN_KERNELS
+                        if k not in SYNTHESIS_KERNELS)
 CORPUS_UTTS = 16          # bench.py config 5: 2 x its batch of 8
 
 # float32 codec, card against CPU on the same input: the float32
@@ -3303,9 +3435,12 @@ def long_audio(torch, dev, card, cycles_per_ms):
     # step program the run captures (the eager call a capture makes before
     # it records, parallel/graphs.py)
     want = {False: {"wt_zc": n_hb, "wt_refine_sums": n_hb,
-                    "wt_ola": p6.n_chunks + 1},
+                    "wt_ola": p6.n_chunks + 1,
+                    "wt_pulse_resp": p6.n_chunks + 1},
             True: {"wt_zc": n_hb, "wt_refine_sums": n_hb,
-                   "wt_ola": -(-p6.n_chunks // LA.PARALLEL_GROUP) + 1}}
+                   "wt_ola": -(-p6.n_chunks // LA.PARALLEL_GROUP) + 1,
+                   "wt_pulse_resp":
+                       -(-p6.n_chunks // LA.PARALLEL_GROUP) + 1}}
     for par in (False, True):
         for c in counts[par]:
             for k, v in want[par].items():
@@ -3420,14 +3555,13 @@ def long_audio(torch, dev, card, cycles_per_ms):
     for nm, ms in by_kernel.most_common(5):
         log(f"  device {ms:8.3f} ms  {nm[:100]}")
     # a replay's launch counts are what its capture recorded: the device
-    # trace shows that the replayed step really ran the OLA kernel
+    # trace shows that the replayed step really ran the synthesis kernels
     s_tr = traced_kernels(s_acts)
     log(f"(b) our kernels in the replayed chunk step's device trace: {s_tr} "
-        f"(gate: wt_ola once, no other)")
-    if s_tr["wt_ola"] != 1 or any(v for k, v in s_tr.items()
-                                  if k != "wt_ola"):
+        f"(gate: wt_ola and wt_pulse_resp once, no other)")
+    if any(v != (k in SYNTHESIS_KERNELS) for k, v in s_tr.items()):
         raise AssertionError("the replayed chunk step's device trace does "
-                             "not show the OLA kernel once")
+                             "not show the OLA and pulse kernels once")
     del c_, o_, ks
 
     # bounded memory: the bytes that grow with the recording are the input
@@ -3575,7 +3709,8 @@ def long_audio(torch, dev, card, cycles_per_ms):
     # run, OLA in the eager sequential loop over the recording's chunks
     long_counts = {k: counts[False][0].get(k, 0)
                    for k in ("wt_zc", "wt_refine_sums")}
-    long_counts["wt_ola"] = loop_counts[(False, "eager")].get("wt_ola", 0)
+    for k in SYNTHESIS_KERNELS:
+        long_counts[k] = loop_counts[(False, "eager")].get(k, 0)
     return long_counts, dict(x60=x60, f0_x60=f0c, x150=x150)
 
 

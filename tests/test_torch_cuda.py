@@ -597,7 +597,8 @@ def test_f64_path_on_card_matches_cpu(dev):
     assert _build.launches["wt_ola_f64"] == 1
     assert _build.launches["wt_seq_cumsum_f64"] >= 5
     assert not any(_build.launches[k] for k in ("wt_zc", "wt_refine_sums",
-                                                 "wt_ola", "wt_extend"))
+                                                 "wt_ola", "wt_extend",
+                                                 "wt_pulse_resp"))
     (f0c, spc, apc), (f0g, spg, apg) = out["cpu"], out[str(dev)]
     np.testing.assert_array_equal(f0c > 0, f0g > 0)
     assert (f0c > 0).mean() > 0.3
@@ -952,7 +953,8 @@ def test_long_pipeline_f64_on_card_matches_cpu(dev):
     assert counts["wt_ola_f64"] == n_chunks + 1
     assert counts["wt_seq_cumsum_f64"] >= n_chunks
     assert not any(k in counts for k in ("wt_zc", "wt_refine_sums",
-                                         "wt_ola", "wt_extend"))
+                                         "wt_ola", "wt_extend",
+                                         "wt_pulse_resp"))
     fg, tp = lpg.harvest.compute(x, dtype=torch.float64)
     fc, _ = lpc.harvest.compute(x, dtype=torch.float64)
     np.testing.assert_array_equal(fg * 1.2, f0g)

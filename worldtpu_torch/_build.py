@@ -47,7 +47,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: refine is held to a
 #: tolerance (1e-5 of the largest sum), and contraction halves the
 #: instructions of its 24 accumulations.  ola's sums are plain adds.
-FMAD = {"refine": "true"}
+#: pulse is held to a tolerance (its FFTs' rounding is not cuFFT's); its
+#: products and sums that must round as the plain version's (the spectral
+#: rows' interpolation and the voicing gate) are written with __fmul_rn /
+#: __fadd_rn, which are never contracted.
+FMAD = {"refine": "true", "pulse": "true"}
 
 #: kernel name -> launches since the last clear()
 launches: collections.Counter = collections.Counter()
@@ -91,6 +95,9 @@ _SIGNATURES = {
     # f0, st, ed, n_sec, out, ybuf, trace (or NULL), B, F, n, NS, lag,
     # chunk, cap, stream
     "wt_contour_smooth": (_P,) * 7 + (_I,) * 7 + (_P,),
+    # pt, shift, ns, vuv, valid, spec, aper, noise, frame_offset (or NULL),
+    # tw, dcr, out, B, P, F, fft, off0, coeff_scale, stream
+    "wt_pulse_resp": (_P,) * 12 + (_I,) * 4 + (ctypes.c_longlong, _F, _P),
     # mark (2 * stage + 0 at entry, + 1 at exit), stream; launched by
     # tracing.stage, never through launch(), so never counted
     "wt_mark": (_I, _P),

@@ -19,23 +19,13 @@ import numpy as np
 import torch
 
 from worldtpu_torch import constants as C
-from worldtpu_torch.ops import dft, trig
-from worldtpu_torch.ops.fftutil import minimum_phase
+from worldtpu_torch.ops import pulse_kernel
 from worldtpu_torch.ops.interp import interp1
 from worldtpu_torch.ops.ola_kernel import overlap_add
 from worldtpu_torch.ops.seqsum import cumsum_sequential
 from worldtpu_torch.tracing import stage
 
 _Q32 = 4294967296.0
-
-
-def dc_remover(fft_size, dtype=torch.float32, device=None):
-    """Half raised-cosine DC remover normalized so the mirrored kernel sums
-    to 1 (reference getDCRemover); returns the first half."""
-    half = fft_size // 2
-    i = torch.arange(half, dtype=dtype, device=device)
-    v = 0.5 - 0.5 * torch.cos(2.0 * C.PI / (1.0 + fft_size) * (i + 1.0))
-    return v / (torch.sum(v) * 2.0)
 
 
 def _time_base(f0, fs, frame_period_s, out_length, lowest_f0, max_pulses):
@@ -124,71 +114,12 @@ def pulse_responses(pt, shift, ns, vuv_at, valid, spectrogram,
     the GLOBAL pt and their block offsets, so floor and ceil are taken on
     the same float values as the unchunked path's before the offset is
     subtracted: a locally rebased pt can floor to the neighbouring frame at
-    knife edges."""
-    dt = spectrogram.dtype
-    dev = spectrogram.device
-    K = fft_size // 2 + 1
-    half = fft_size // 2
-    B, F, _ = spectrogram.shape
-    P = pt.shape[1]
-    off = (frame_offset[:, None] if isinstance(frame_offset, torch.Tensor)
-           else frame_offset)
-
-    # ---- per-pulse envelope / aperiodic ratio (reference :346-393) ----
-    fl = (torch.floor(pt).to(torch.int32) - off).clamp(0, F - 1).long()
-    ce = (torch.ceil(pt).to(torch.int32) - off).clamp(0, F - 1).long()
-    w = (pt - torch.floor(pt))[..., None]
-    same = (fl == ce)[..., None]
-
-    def rows(a, i):
-        return a.gather(1, i[..., None].expand(B, P, K))
-
-    sp = torch.abs(spectrogram)
-    spec = torch.where(same, rows(sp, fl),
-                       (1.0 - w) * rows(sp, fl) + w * rows(sp, ce))
-    apc = torch.clamp(aperiodicity, 0.001, 0.999999999999)
-    ap = torch.where(same, rows(apc, fl),
-                     (1.0 - w) * rows(apc, fl) + w * rows(apc, ce)) ** 2
-
-    # ---- periodic + aperiodic responses, one batched minimum phase ----
-    per_on = (vuv_at > 0.5) & (ap[..., 0] <= 0.999)
-    log_per = torch.log(spec * (1.0 - ap) + C.MY_SAFE_GUARD_MINIMUM) / 2.0
-    log_ap = torch.where((vuv_at != 0.0)[..., None],
-                         torch.log(spec * ap) / 2.0, torch.log(spec) / 2.0)
-    mp_both = minimum_phase(torch.cat([log_per, log_ap], dim=1))
-    mp_per, mp_ap = mp_both[:, :P], mp_both[:, P:]
-
-    coeff = (2.0 * C.PI * fs / fft_size) * shift
-    if dt == torch.float64:      # parity path: the literal cosine grid
-        re2 = torch.cos(coeff[..., None]
-                        * torch.arange(K, dtype=dt, device=dev))
-    else:
-        # seed-and-rotate cos; the 2-term combine can overshoot |1| by an ulp
-        re2 = torch.clamp(trig.cos_affine(coeff, torch.zeros_like(coeff), K),
-                          -1.0, 1.0)
-    im2 = torch.sqrt(1.0 - re2 * re2)  # |sin|: the reference's :452 quirk
-    phase = torch.complex(re2, -im2)
-
-    j = torch.arange(fft_size, device=dev)
-    nmask = j < ns[..., None]
-    nz = noise.to(dt) * nmask
-    nmean = torch.sum(nz, -1, keepdim=True) / ns.clamp(min=1)[..., None]
-    nz = torch.where(nmask, nz - nmean, torch.zeros((), dtype=dt, device=dev))
-    nspec = dft.rfft(nz)
-
-    both = dft.irfft(torch.cat([mp_per * phase, mp_ap * nspec], dim=1),
-                     n=fft_size) * fft_size
-    both = torch.roll(both, half, dims=-1)  # fftshift
-    per, aper = both[:, :P], both[:, P:]
-    dc = torch.sum(per[..., half:], dim=-1, keepdim=True)
-    dcr = dc_remover(fft_size, dt, dev)
-    per = torch.cat([-dc * dcr, per[..., half:] - dc * dcr], dim=-1)
-    per = torch.where(per_on[..., None], per, torch.zeros((), dtype=dt,
-                                                          device=dev))
-
-    resp = (per * torch.sqrt(ns.to(dt))[..., None] + aper) / fft_size
-    return torch.where(valid[..., None], resp, torch.zeros((), dtype=dt,
-                                                           device=dev))
+    knife edges.  Rows past ``valid`` are zero.  A float32 CUDA input runs
+    the CUDA kernel, the CPU and float64 the plain chain
+    (``ops.pulse_kernel``)."""
+    return pulse_kernel.pulse_responses(
+        pt, shift, ns, vuv_at, valid, spectrogram, aperiodicity, noise,
+        fs=fs, fft_size=fft_size, frame_offset=frame_offset)
 
 
 def synthesis_frames_impl(f0, spectrogram, aperiodicity, noise, *, fs,

@@ -8,7 +8,8 @@ batches of windows run the device stages (decimate -> band candidates ->
 refine -> prune: the zc and refine kernels on the card) at ONE geometry,
 the per-frame candidate and score rows are stitched on the 1 ms grid at
 chunk boundaries, and the host contour (``analysis.contour``) runs once
-over the whole recording.  Every stage has finite temporal support
+over the whole recording (host ranges ``wt.long.harvest`` and
+``wt.long.contour``).  Every stage has finite temporal support
 (decimation IIR decay, filter taps, zero-crossing intervals <= 1/f0_floor,
 refine windows <= 3/f0_floor, +-1 frame pruning), so a ~1 s halo
 reproduces interior frames to float32 noise.  float64 runs the parity
@@ -31,6 +32,7 @@ from worldtpu_torch import constants as C
 from worldtpu_torch.analysis import contour
 from worldtpu_torch.analysis.harvest import (
     HarvestGeometry, as_tensor, check_dtype, harvest_device_stages)
+from worldtpu_torch.tracing import long_span
 
 #: windows per batch of device stages, by dtype.  float32: 16 windows of
 #: 10 s at 22.05 kHz peak at 9-12 GiB on an H100 (PERF.md, section 5).
@@ -94,9 +96,11 @@ class LongHarvest:
         MAX_BATCH of the dtype)."""
         n = int(x.shape[0])
         check_dtype(dtype)
-        cand, score = self._candidates(x, dtype,
-                                       max_batch or MAX_BATCH[dtype])
-        return self._contour(cand, score, n)
+        with long_span("harvest"):
+            cand, score = self._candidates(x, dtype,
+                                           max_batch or MAX_BATCH[dtype])
+        with long_span("contour"):
+            return self._contour(cand, score, n)
 
     def _windows(self, x, dtype):
         """(the zero-padded signal on the device, each window's start)."""

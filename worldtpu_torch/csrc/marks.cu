@@ -1,5 +1,6 @@
 // Stage marks: an empty kernel at the entry and one at the exit of each
-// stage of the main path, launched by worldtpu_torch/tracing.py's stage().
+// stage of the main path and of the long-audio chunk step and prescan,
+// launched by worldtpu_torch/tracing.py's stage().
 //
 // Replaces no TPU kernel: the JAX package names its stages for XLA's
 // profiler, whose trace splits even a jitted program by its named scopes.
@@ -8,9 +9,12 @@
 // graph: every replay runs them, and a profiler records them on the
 // device's clock around the kernels of their stage.  A mark reads and
 // writes nothing, so no output changes; each is one empty <<<1, 1>>> block
-// (~1-2 us as a graph node), 26 a batch.
+// (~1-2 us as a graph node), 26 a main-path batch, 10 a long-audio chunk
+// step, 2 a prescan step.
 //
-// WT_STAGES is the one list of the stage names, in main-path order;
+// WT_STAGES is the one list of the stage names, in main-path order, the
+// long-audio stages after them (appended: every earlier mark keeps its
+// index);
 // tracing.STAGES equals it (tests/test_torch_tracing.py).  Mark 2 i is
 // stage i's entry (wt_mark_<stage>_in), mark 2 i + 1 its exit
 // (wt_mark_<stage>_out).  The names start with "wt_mark_": a profiler's
@@ -32,7 +36,13 @@
   X(cheaptrick)      \
   X(d4c)             \
   X(pulse_train)     \
-  X(ola)
+  X(ola)             \
+  X(long_prescan)    \
+  X(long_analysis)   \
+  X(long_timebase)   \
+  X(long_noise)      \
+  X(long_pulses)     \
+  X(long_ola)
 
 #define WT_MARK_KERNELS(name)                         \
   extern "C" __global__ void wt_mark_##name##_in() {} \

@@ -59,6 +59,14 @@ enqueued before chunk k's buffer, copied to pinned memory behind an event,
 is landed; the overflow flags are read once, at the end.  The mesh path
 runs eagerly.
 
+Trace points (``tracing``): the chunk step marks its parts as the stages
+``long_analysis``, ``long_timebase``, ``long_noise``, ``long_pulses`` and
+``long_ola``, the prescan step its time base as ``long_prescan``, so every
+replay runs their marks; the host work is under ``wt.long.harvest``,
+``wt.long.contour`` (LongHarvest), ``wt.long.plan`` and ``wt.long.land``.
+``LongPipeline.counts`` holds the last call's chunk steps and
+synthesized pulses, read with the overflow flags.
+
 Memory: O(chunk) on the device (O(group) with ``parallel=True``), O(output)
 on the host.
 """
@@ -84,6 +92,7 @@ from worldtpu_torch.ops.ola_kernel import overlap_add
 from worldtpu_torch.parallel import graphs as _graphs
 from worldtpu_torch.synthesis import noise as N
 from worldtpu_torch.synthesis import synthesis as S
+from worldtpu_torch.tracing import long_span, stage
 
 #: chunks per batched call in the parallel mode (one OLA launch each)
 PARALLEL_GROUP = 8
@@ -270,8 +279,10 @@ def _timebase_core(p, k, carry):
 def _prescan_program(k, carry, ordn, *, plan):
     """One prescan step, the program that _phase_prescan replays: chunks
     k's time base alone -> (carry', ordinal', overflowed)."""
-    tb = _timebase_core(plan, k, carry)
-    return tb["carry_out"], ordn + tb["n_own"], tb["overflowed"]
+    with stage("long_prescan", k.device):
+        tb = _timebase_core(plan, k, carry)
+        out = tb["carry_out"], ordn + tb["n_own"], tb["overflowed"]
+    return out
 
 
 def _phase_prescan(p, dev, call=_graphs.eager):
@@ -345,23 +356,28 @@ def _chunk_step(p, k, carry, ord0, key):
     Returns (buf [G, L + fft], carry', ord0', overflowed [G]); buf[g, j]
     belongs at global output sample k*L - fft//2 + 1 + j of its chunk
     k."""
-    fs, fft = p.fs, p.fft
+    fs, fft, dev = p.fs, p.fft, k.device
 
-    spec, ap = _analysis(p, k)
+    with stage("long_analysis", dev):
+        spec, ap = _analysis(p, k)
 
-    pul = _pulse_table(p, k, carry)
-    noise = N.indexed_noise(key, ord0, p.Pmax, fft, dtype=spec.dtype)
-    resp = S.pulse_responses(pul["pt"], pul["shift"], pul["ns"],
-                             pul["vuv_at"], pul["own"], spec, ap, noise,
-                             fs=fs, fft_size=fft,
-                             frame_offset=p.flo_dev[k])
+    with stage("long_timebase", dev):
+        pul = _pulse_table(p, k, carry)
+    with stage("long_noise", dev):
+        noise = N.indexed_noise(key, ord0, p.Pmax, fft, dtype=spec.dtype)
+    with stage("long_pulses", dev):
+        resp = S.pulse_responses(pul["pt"], pul["shift"], pul["ns"],
+                                 pul["vuv_at"], pul["own"], spec, ap, noise,
+                                 fs=fs, fft_size=fft,
+                                 frame_offset=p.flo_dev[k])
 
     # ---- OLA into the local buffers (reference :118-139): a pulse at
     # local sample i writes [i - half + 1, i + half], and buffer position
     # j is local sample j - half + 1; the owned pulses come first, in
     # time order, and the kernel scans no pulse past n_own ----
-    buf = overlap_add(resp.contiguous(), pul["idx"].to(torch.int32),
-                      p.L + fft, pul["n_own"])
+    with stage("long_ola", dev):
+        buf = overlap_add(resp.contiguous(), pul["idx"].to(torch.int32),
+                          p.L + fft, pul["n_own"])
     return buf, pul["carry_out"], ord0 + pul["n_own"], pul["overflowed"]
 
 
@@ -388,6 +404,10 @@ class LongPipeline:
 
     Against worldtpu's class: the noise key is ``seed`` (an int, the key
     of JAX's PRNGKey(seed), or two uint32 words).
+
+    ``counts``: the last ``copy_synthesis``'s ``chunk_steps`` (calls of
+    the chunk step's program on this process) and ``pulses`` (the pulses
+    they synthesized), None before the first.
     """
 
     def __init__(self, fs, *, frame_period=5.0, chunk_frames=1000,
@@ -406,6 +426,7 @@ class LongPipeline:
         self.fft_size = ck.fft_size
         self.max_half_window = ck.max_half_window
         self.halo = analysis_halo_samples(fs, f0_floor)
+        self.counts = None
 
     def plan(self, x, f0_np, duration_scale=1.0, dtype=torch.float32):
         """The chunk geometry and device tables for input x and the
@@ -453,7 +474,8 @@ class LongPipeline:
         f0_np, _ = self.harvest.compute(x, dtype=dtype)
         f0_np = np.asarray(f0_np, np.float64) * pitch_scale
         with torch.no_grad():
-            p = self.plan(x, f0_np, duration_scale, dtype)
+            with long_span("plan"):
+                p = self.plan(x, f0_np, duration_scale, dtype)
             if mesh is not None:
                 y, ovf = self._sharded(p, key, mesh)
             else:
@@ -492,7 +514,7 @@ class LongPipeline:
                     _land(y, p, *pending)
                 pending = queued
             _land(y, p, *pending)
-            return y, torch.cat(flags).cpu()
+            return y, self._read_flags(flags, ord0, p.n_chunks)
 
     def _parallel(self, p, key, call=None):
         """The prescan, then the chunks PARALLEL_GROUP at a time through
@@ -513,7 +535,7 @@ class LongPipeline:
             for k0 in range(0, p.n_chunks, G):
                 n = min(G, p.n_chunks - k0)
                 rows = slice(k0, k0 + G)
-                buf, _, _, ovf = call(
+                buf, _, ord1, ovf = call(
                     _step_program, (ks[rows], carries[rows], ords[rows],
                                     key), dtypes=_DTYPES, plan=p)
                 flags.append(ovf[:n])
@@ -522,7 +544,7 @@ class LongPipeline:
                     _land(y, p, *pending)
                 pending = queued
             _land(y, p, *pending)
-            return y, torch.cat(flags).cpu()
+            return y, self._read_flags(flags, ord1[n - 1:n], len(flags) - 1)
 
     def _sharded(self, p, key, mesh):
         from worldtpu_torch.parallel.distributed import all_gather
@@ -535,19 +557,34 @@ class LongPipeline:
         buf = torch.zeros((per, p.L + p.fft), dtype=p.x_dev.dtype,
                           device=self.device)
         ovf = torch.zeros(per, dtype=torch.uint8, device=self.device)
+        # the pulses this rank synthesizes: its chunks' last ordinal out
+        # less its first ordinal in
+        done = torch.zeros(1, dtype=torch.int64, device=self.device)
+        steps = 0
         for k0 in range(k_lo, k_hi, PARALLEL_GROUP):
             k1 = min(k0 + PARALLEL_GROUP, k_hi)
             ks = torch.arange(k0, k1, device=self.device)
-            buf[k0 - k_lo:k1 - k_lo], _, _, ovf[k0 - k_lo:k1 - k_lo] = \
+            buf[k0 - k_lo:k1 - k_lo], _, ord1, ovf[k0 - k_lo:k1 - k_lo] = \
                 _chunk_step(p, ks, carries[k0:k1], ords[k0:k1], key)
+            done = ord1[-1:] - ords[k_lo:k_lo + 1]
+            steps += 1
         # every rank's run, in the (data, time) rank order of the split
         bufs = all_gather(all_gather(buf, mesh, "time"), mesh, "data")
         ovfs = all_gather(all_gather(ovf, mesh, "time"), mesh, "data")
         bufs = bufs.reshape(-1, bufs.shape[-1])[:p.n_chunks].cpu().numpy()
         y = np.zeros(p.out_length + p.fft, np.float64)
         _land(y, p, 0, lambda: bufs)
-        return y, torch.cat([ovf_scan,
-                             ovfs.reshape(-1)[:p.n_chunks].bool()]).cpu()
+        return y, self._read_flags(
+            [ovf_scan, ovfs.reshape(-1)[:p.n_chunks].bool()], done, steps)
+
+    def _read_flags(self, flags, pulses, steps):
+        """The overflow flags (a list of bool tensors on the device) on the
+        host, read with the synthesized pulses ([1] int64 on the device) in
+        one copy; sets ``counts``."""
+        got = torch.cat([*(f.to(torch.int64) for f in flags),
+                         pulses.reshape(1).to(torch.int64)]).cpu()
+        self.counts = {"chunk_steps": int(steps), "pulses": int(got[-1])}
+        return got[:-1].bool()
 
 
 @contextlib.contextmanager
@@ -583,11 +620,12 @@ def _download(buf):
 def _land(y, p, k0, finish):
     """Add chunk buffers k0, k0+1, ... into the host output y."""
     half = p.fft // 2
-    for g, b in enumerate(finish()):
-        lo = (k0 + g) * p.L - half + 1
-        b = b.astype(np.float64)
-        if lo < 0:
-            b = b[-lo:]
-            lo = 0
-        hi = min(lo + len(b), len(y))
-        y[lo:hi] += b[:hi - lo]
+    with long_span("land"):
+        for g, b in enumerate(finish()):
+            lo = (k0 + g) * p.L - half + 1
+            b = b.astype(np.float64)
+            if lo < 0:
+                b = b[-lo:]
+                lo = 0
+            hi = min(lo + len(b), len(y))
+            y[lo:hi] += b[:hi - lo]

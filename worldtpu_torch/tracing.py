@@ -23,6 +23,15 @@ one outermost ``wt.graph.eager``, ``wt.graph.capture`` or
 ``wt.graph.replay`` a call; a capture holds ``wt.graph.warm``,
 ``wt.graph.record`` and, when the cache is full, ``wt.graph.evict``.
 
+The long-audio path (``longaudio.py``) marks its chunk step and prescan
+as stages of their own (the six ``long_*`` stages, appended after the main
+path's), so a replayed chunk step is split on the device too; its host
+work has host ranges only (``long_span``): ``wt.long.harvest``
+(LongHarvest's device stages and the landing of their rows),
+``wt.long.contour`` (the host contour), ``wt.long.plan`` (the chunk plan
+and its device tables) and ``wt.long.land`` (the host accumulation of
+chunk buffers).
+
 Every ``wt.*`` range of the port is opened here.  What reads them:
 ``wtbench/stages.py``.
 """
@@ -36,14 +45,19 @@ from torch.profiler import record_function
 
 from worldtpu_torch import _build
 
-#: the stages of the main path, in its order (``WT_STAGES`` in
-#: ``csrc/marks.cu``)
+#: the stages of the main path, in its order, then those of the long-audio
+#: chunk step and prescan (``WT_STAGES`` in ``csrc/marks.cu``)
 STAGES = ("decimate", "band_filter", "zc", "detect_overlap",
           "refine_prepare", "refine_sums", "refine_finish", "prune",
-          "contour", "cheaptrick", "d4c", "pulse_train", "ola")
+          "contour", "cheaptrick", "d4c", "pulse_train", "ola",
+          "long_prescan", "long_analysis", "long_timebase", "long_noise",
+          "long_pulses", "long_ola")
 
 #: the graph cache's spans: a call's outermost one, and a capture's parts
 GRAPH_SPANS = ("eager", "capture", "warm", "record", "evict", "replay")
+
+#: the long-audio path's host ranges
+LONG_SPANS = ("harvest", "contour", "plan", "land")
 
 _MARK = {name: 2 * i for i, name in enumerate(STAGES)}
 
@@ -80,3 +94,11 @@ def graph_span(kind):
     if kind not in GRAPH_SPANS:
         raise ValueError(f"unknown graph span {kind!r}")
     return record_function("wt.graph." + kind)
+
+
+def long_span(kind):
+    """The long-audio path's host range ``wt.long.<kind>``
+    (``LONG_SPANS``)."""
+    if kind not in LONG_SPANS:
+        raise ValueError(f"unknown long-audio span {kind!r}")
+    return record_function("wt.long." + kind)

@@ -151,12 +151,13 @@ Phases (any failure raises, so the exit code is not 0):
      LongHarvest) on one 10-minute recording, bench.synth_utterance_diverse
      utterances joined to 600 s at 22.05 kHz, f0_floor 40, Harvest chunks
      of 8 s with 1 s halos, synthesis chunks of 1000 frames, pitch x1.2,
-     duration x1.25: (a) LongHarvest against the unchunked Harvest with
-     the same host contour, on tests/test_longform.py's 60 s signal (its
-     gates: voicing identical, F0 RMSE < 0.1 Hz, max < 5 Hz) and on the
-     recording's first minute of whole utterances (voicing agreement >=
-     0.99, median |dF0| < 0.01 Hz; HarvestKernel.compute's device chain
-     reported beside it, with both peaks of device memory), and
+     duration x1.25: (a) LongHarvest (float32 on the card: the device
+     contour chain) against the unchunked HarvestKernel.compute (the same
+     chain), on tests/test_longform.py's 60 s signal (its gates: voicing
+     identical, F0 RMSE < 0.1 Hz, max < 5 Hz) and on the recording's
+     first minute of whole utterances (voicing agreement >= 0.99, median
+     |dF0| < 0.01 Hz; the unchunked stages with the host contour reported
+     beside it, with both peaks of device memory), and
      copy_synthesis against the unchunked CheapTrick + D4C + synthesis on
      its F0 with the same indexed_noise rows (pulse positions identical;
      100 ms windowed relative error q99 < 1e-3 and q90 < 0.1; block
@@ -166,7 +167,10 @@ Phases (any failure raises, so the exit code is not 0):
      each loop's own (finite, rms > 0.01, no pulse overflow, F0 identical
      between the modes, waveforms within (a)'s gates; each mode's wall and
      realtime factor, and the memory reserved after it; LongHarvest's wall
-     split into device stages, downloads and the host contour; the
+     split into device stages, the stitching on the device and the device
+     contour chain, and the device chain against the host chain on the
+     same candidates (voicing agreement, median and maximum |dF0|, both
+     contours' walls); the
      synthesis loops alone eager and replayed in turns, y bit-equal,
      launches equal but the capture's eager step, the replayed loop's
      peak reserved memory within the eager loop's plus three eager step
@@ -174,8 +178,10 @@ Phases (any failure raises, so the exit code is not 0):
      first's, with the pool each capture reserved; one replayed chunk step
      profiled (its device trace shows the OLA kernel once); host syncs of
      each loop (replayed: at most the flags' read after the last replay);
-     zc, refine and OLA launches counted from 0; peak device memory within
-     the first 150 s run's peak plus the input and table bytes that grow,
+     zc, refine, extend, merge, smoothing and OLA launches counted from
+     0; peak device memory within
+     the first 150 s run's peak plus the input, table and stitched
+     candidate bytes that grow,
      plus 5%);
      (c) OLA on one parallel group's [8, Pmax, fft] and zc and refine on
      two LongHarvest windows [2, 220,500] against their plain versions at
@@ -245,9 +251,9 @@ floor, n - 1 dependent adds at the measured latency, "operations", and
 its bytes; its ``cases`` give each timed launch), the share bound/ms, and the library call's device time
 (null where no single PyTorch call computes the function), and its
 launches in one pass of phase 8's corpus stream (``launches_corpus``), in
-phase 9's 600 s recording, counted in eager calls (LongHarvest's zc and
-refine in the first sequential run, OLA in the eager sequential synthesis
-loop: ``launches_long``; a replay's counts are bookkeeping, and a profiled
+phase 9's 600 s recording, counted in eager calls (LongHarvest's zc,
+refine, extend, merge and smoothing in the first sequential run, OLA in
+the eager sequential synthesis loop: ``launches_long``; a replay's counts are bookkeeping, and a profiled
 replayed chunk step's device trace is gated instead), in one grid-2
 batch of phase 10(a) (``launches_grid2``) and in phase 10(b)'s eager
 float64 sequential synthesis loop over the 58.52 s cut
@@ -2652,6 +2658,9 @@ MAIN_KERNELS = ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend",
                 "wt_contour_merge", "wt_contour_smooth", "wt_pulse_resp")
 # the kernels of HarvestKernel.forward (the main path's but the synthesis')
 SYNTHESIS_KERNELS = ("wt_ola", "wt_pulse_resp")
+#: the contour chain's kernels, one launch each a LongHarvest call on the
+#: card
+CONTOUR_KERNELS = ("wt_extend", "wt_contour_merge", "wt_contour_smooth")
 HARVEST_KERNELS = tuple(k for k in MAIN_KERNELS
                         if k not in SYNTHESIS_KERNELS)
 CORPUS_UTTS = 16          # bench.py config 5: 2 x its batch of 8
@@ -3163,17 +3172,18 @@ def windowed_rel(yc, yu):
 
 def long_audio(torch, dev, card, cycles_per_ms):
     """Phase 9: long audio on the card.  (a) the first PARITY_S s of the
-    recording: LongHarvest against the unchunked HarvestKernel.compute,
-    and LongPipeline.copy_synthesis against the unchunked CheapTrick, D4C
+    recording: LongHarvest against the unchunked HarvestKernel.compute
+    (both the device contour chain), and LongPipeline.copy_synthesis against the unchunked CheapTrick, D4C
     and synthesis on its F0 with the same indexed_noise rows (pulses
     identical, windowed error); (b) the whole LONG_S s recording through
     LongPipeline.copy_synthesis (pitch x1.2, duration x1.25), sequential
     and parallel in turns, with its walls, the split of LongHarvest's, the
-    host syncs per chunk, the kernels' launches and the bounded device
-    memory against the first BOUND_S s; (c) the OLA, zc and refine kernels
+    host syncs per chunk, the kernels' launches, the device contour chain
+    against the host chain on the recording's stitched candidates and the
+    bounded device memory against the first BOUND_S s; (c) the OLA, zc and refine kernels
     against their plain versions at this path's shapes.  Returns the
-    launches of the LONG_S s recording's eager calls (LongHarvest's zc and
-    refine in its first sequential run, OLA in the eager sequential
+    launches of the LONG_S s recording's eager calls (LongHarvest's zc,
+    refine and contour kernels in its first sequential run, OLA in the eager sequential
     synthesis loop; from 0), and for phase
     10 the parity cut x60, its float32 LongHarvest F0 and the first
     BOUND_S s x150."""
@@ -3236,9 +3246,9 @@ def long_audio(torch, dev, card, cycles_per_ms):
                 f"Hz, median {r['median']:.2e} Hz, max {r['max']:.2e} Hz")
 
     def unchunked(x):
-        """The unchunked stages with LongHarvest's own host contour (what
-        worldtpu's HarvestKernel.compute runs past 8,192 frames and what
-        tests/test_longform.py holds LongHarvest to)."""
+        """The unchunked stages with the host contour (what worldtpu's
+        HarvestKernel.compute runs past 8,192 frames and what
+        tests/test_longform.py holds LongHarvest to on the CPU)."""
         geo = H.HarvestGeometry(FS, len(x), f0_floor=LONG_FLOOR)
         with torch.no_grad():
             cu, su = (t[0].cpu().numpy().astype(np.float64)
@@ -3247,13 +3257,22 @@ def long_audio(torch, dev, card, cycles_per_ms):
                           torch.zeros(1, device=dev), geo=geo))
         return H.host_contour(cu, su, geo)
 
+    def unchunked_card(x):
+        """HarvestKernel.compute on the card: the unchunked stages with the
+        device contour chain, the chain LongHarvest takes on the card."""
+        return H.HarvestKernel(FS, len(x), f0_floor=LONG_FLOOR,
+                               device=dev).compute(x)[0]
+
     # tests/test_longform.py's own signal, 60 s, at this rate and floor
     xs = long_utterance(FS, TEST_SIGNAL_S)
-    rs = f0_diff(lh.compute(xs)[0], unchunked(xs))
+    f0s_ = lh.compute(xs)[0]
+    rs = f0_diff(f0s_, unchunked_card(xs))
+    rs_h = f0_diff(f0s_, unchunked(xs))
     log(f"(a) LongHarvest on tests/test_longform.py's {TEST_SIGNAL_S:g} s "
-        f"signal vs the "
-        f"unchunked Harvest (same host contour): {fmt(rs)}; gates: flips "
-        f"0, RMSE < {LONG_F0_RMSE} Hz, max < {LONG_F0_MAX} Hz  [{card}]")
+        f"signal vs the unchunked HarvestKernel.compute (the same device "
+        f"contour chain): {fmt(rs)}; gates: flips 0, RMSE < {LONG_F0_RMSE} "
+        f"Hz, max < {LONG_F0_MAX} Hz; vs the unchunked stages with the "
+        f"host contour: {fmt(rs_h)}  [{card}]")
     if rs["flips"] or rs["rmse"] >= LONG_F0_RMSE or rs["max"] >= LONG_F0_MAX:
         raise AssertionError("LongHarvest disagrees with the unchunked "
                              "Harvest on tests/test_longform.py's signal")
@@ -3279,17 +3298,18 @@ def long_audio(torch, dev, card, cycles_per_ms):
     rc = f0_diff(f0u, f0d)
     log(f"(a) LongHarvest on the first {len(x60) / FS:.2f} s "
         f"({np.sum(ends <= PARITY_S * FS)} whole utterances), {len(f0c)} "
-        f"frames, against the unchunked Harvest (same host contour): "
-        f"{fmt(rr)}; gates: agreement >= {REC_VOICING}, median < "
-        f"{REC_F0_MEDIAN} Hz; against HarvestKernel.compute on the card "
-        f"(float32 device contour chain): {fmt(rd)}; the two contours on "
-        f"the same unchunked candidates: {fmt(rc)}; walls {lh_s:.2f} s "
+        f"frames, against HarvestKernel.compute on the card (the same "
+        f"float32 device contour chain): {fmt(rd)}; gates: agreement >= "
+        f"{REC_VOICING}, median < {REC_F0_MEDIAN} Hz; against the "
+        f"unchunked stages with the host contour: {fmt(rr)}; the two "
+        f"contours on the same unchunked candidates: {fmt(rc)}; walls "
+        f"{lh_s:.2f} s "
         f"chunked, {hk_s:.2f} s HarvestKernel.compute; peak device memory "
         f"{gib(peak_lh):.2f} GiB chunked, {gib(peak_hk):.2f} GiB "
         f"HarvestKernel.compute  [{card}]")
-    if (f0c.shape != f0u.shape or not np.array_equal(tpc, tpu)
-            or rr["agree"] < REC_VOICING or rr["median"] >= REC_F0_MEDIAN
-            or rr["voiced"] < 0.3):
+    if (f0c.shape != f0d.shape or not np.array_equal(tpc, tpu)
+            or rd["agree"] < REC_VOICING or rd["median"] >= REC_F0_MEDIAN
+            or rd["voiced"] < 0.3):
         raise AssertionError("LongHarvest disagrees with the unchunked "
                              "Harvest")
 
@@ -3430,17 +3450,19 @@ def long_audio(torch, dev, card, cycles_per_ms):
             or not np.array_equal(f0s6, f0p6) or len(ys) != p6.out_length
             or q99b >= PARITY_Q99 or q90b >= WINDOW_Q90):
         raise AssertionError(f"{LONG_S} s long audio")
-    # a run's launches: LongHarvest's zc and refine once a batch, OLA once
-    # a chunk (sequential) or a group (parallel), and once more for the
-    # step program the run captures (the eager call a capture makes before
-    # it records, parallel/graphs.py)
-    want = {False: {"wt_zc": n_hb, "wt_refine_sums": n_hb,
-                    "wt_ola": p6.n_chunks + 1,
-                    "wt_pulse_resp": p6.n_chunks + 1},
-            True: {"wt_zc": n_hb, "wt_refine_sums": n_hb,
-                   "wt_ola": -(-p6.n_chunks // LA.PARALLEL_GROUP) + 1,
-                   "wt_pulse_resp":
-                       -(-p6.n_chunks // LA.PARALLEL_GROUP) + 1}}
+    # a run's launches: LongHarvest's zc and refine once a batch, its
+    # contour chain's kernels once, OLA once a chunk (sequential) or a
+    # group (parallel), and once more for the step program the run
+    # captures (the eager call a capture makes before it records,
+    # parallel/graphs.py)
+    harvest_want = dict({"wt_zc": n_hb, "wt_refine_sums": n_hb},
+                        **{k: 1 for k in CONTOUR_KERNELS})
+    want = {False: dict(harvest_want, wt_ola=p6.n_chunks + 1,
+                        wt_pulse_resp=p6.n_chunks + 1),
+            True: dict(harvest_want,
+                       wt_ola=-(-p6.n_chunks // LA.PARALLEL_GROUP) + 1,
+                       wt_pulse_resp=-(-p6.n_chunks
+                                       // LA.PARALLEL_GROUP) + 1)}
     for par in (False, True):
         for c in counts[par]:
             for k, v in want[par].items():
@@ -3566,29 +3588,36 @@ def long_audio(torch, dev, card, cycles_per_ms):
 
     # bounded memory: the bytes that grow with the recording are the input
     # (LongHarvest's padded copy and the plan's, which the chunk programs
-    # read in place) and the F0 tables
+    # read in place), the F0 tables and LongHarvest's stitched candidate
+    # and score rows [F_total, S] (float32), which its contour chain reads
+    # on the card
     def grow(x):
         pl = lp.plan(x, f0s6[:1 + int(1000 * len(x) / FS / 5.0)], DUR)
-        return nbytes(pl.x_dev, pl.f0_dev, pl.cf0_dev, pl.cvuv_dev,
-                      pl.flo_dev, pl.a0_dev, pl.tpos_dev,
-                      lh._windows(x, torch.float32)[0])
+        rows = (lh.n_chunks(len(x)) * lh.chunk_ms + 1) \
+            * lh.geo.max_candidates * 4 * 2
+        return rows + nbytes(pl.x_dev, pl.f0_dev, pl.cf0_dev, pl.cvuv_dev,
+                             pl.flo_dev, pl.a0_dev, pl.tpos_dev,
+                             lh._windows(x, torch.float32)[0])
     extra = grow(rec) - grow(x150)
     for par, name in ((False, "sequential"), (True, "parallel")):
         limit = (peak150[par] + extra) * (1 + MEM_MARGIN)
         log(f"(b) bounded memory, {name}: peak {gib(peaks[par]):.3f} GiB at "
             f"{LONG_S} s against {gib(peak150[par]):.3f} GiB at {BOUND_S} s "
-            f"+ {extra / 1e6:.1f} MB of input and F0 tables, + "
+            f"+ {extra / 1e6:.1f} MB of input, F0 tables and stitched "
+            f"candidate rows, + "
             f"{100 * MEM_MARGIN:.0f}%: limit {gib(limit):.3f} GiB (each "
             f"run's programs alive during it)")
         if peaks[par] > limit:
             raise AssertionError(f"device memory grows with the recording "
                                  f"({name})")
 
-    # LongHarvest's wall split: device stages alone, with the downloads
-    # (and stitching), and the host contour
+    # LongHarvest's wall split: device stages alone, with the stitching on
+    # the device, and the device contour chain (F0 downloaded); then the
+    # host chain on the same candidates, downloaded, against it
     xp, starts = lh._windows(rec, torch.float32)
     mean = torch.zeros(16, device=dev)
-    split = {"stages": [], "stages + downloads": [], "host contour": []}
+    split = {"stages": [], "stages + stitching": [],
+             "device contour chain": [], "download + host contour": []}
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3601,16 +3630,29 @@ def long_audio(torch, dev, card, cycles_per_ms):
         torch.cuda.synchronize()
         split["stages"].append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        c, s_ = lh._candidates(rec, torch.float32, 16)
-        split["stages + downloads"].append(time.perf_counter() - t0)
+        c, s_ = lh._stitched(rec, torch.float32, 16)
+        torch.cuda.synchronize()
+        split["stages + stitching"].append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        lh._contour(c, s_, len(rec))
-        split["host contour"].append(time.perf_counter() - t0)
+        f0_dc, _ = lh._contour_on_card(c, s_, len(rec))
+        split["device contour chain"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        f0_hc, _ = lh._contour(c.double().cpu().numpy(),
+                               s_.double().cpu().numpy(), len(rec))
+        split["download + host contour"].append(time.perf_counter() - t0)
+    n_cand = c.shape[0]
     del xp, c, s_
+    rch = f0_diff(f0_dc, f0_hc)
     log(f"(b) LongHarvest {LONG_S} s split (walls, s): "
         + "; ".join(f"{k} {[round(v, 3) for v in vs]}"
                     for k, vs in split.items())
-        + f"  [{card}]")
+        + f"; the device chain against the host chain on the same "
+        f"{n_cand} frames of candidates, F0 at {len(f0_dc)} frames: "
+        f"{fmt(rch)}; gates: agreement >= "
+        f"{REC_VOICING}, median < {REC_F0_MEDIAN} Hz  [{card}]")
+    if rch["agree"] < REC_VOICING or rch["median"] >= REC_F0_MEDIAN:
+        raise AssertionError("the device contour chain disagrees with the "
+                             "host chain on the 600 s recording")
 
     # host syncs of the synthesis loops (CUDA sync debug mode): the
     # replayed loops read their overflow flags once, after the last replay
@@ -3705,10 +3747,11 @@ def long_audio(torch, dev, card, cycles_per_ms):
                              "at the long-audio shapes")
     log(f"phase 9 wall: {time.perf_counter() - t_phase:.1f} s")
     # the kernels line's launches come from eager calls (a replay's are
-    # bookkeeping): LongHarvest's zc and refine in the first sequential
-    # run, OLA in the eager sequential loop over the recording's chunks
+    # bookkeeping): LongHarvest's zc, refine and contour kernels in the
+    # first sequential run, OLA in the eager sequential loop over the
+    # recording's chunks
     long_counts = {k: counts[False][0].get(k, 0)
-                   for k in ("wt_zc", "wt_refine_sums")}
+                   for k in ("wt_zc", "wt_refine_sums") + CONTOUR_KERNELS}
     for k in SYNTHESIS_KERNELS:
         long_counts[k] = loop_counts[(False, "eager")].get(k, 0)
     return long_counts, dict(x60=x60, f0_x60=f0c, x150=x150)

@@ -644,15 +644,25 @@ def test_orbits_within_cap():
 
 
 def test_smooth_chunk_bounds():
-    """Kernel B's checkpoint spacing keeps its shared memory (2 doubles a
-    checkpoint, a chunk of doubles) within 48 KB; a contour past 2048
-    checkpoints of 2048 frames raises."""
+    """Kernel B's checkpoint spacing keeps its checkpoints and a chunk (2
+    doubles a checkpoint, a chunk of doubles) within 48 KB up to 2048
+    checkpoints of 2048 frames, the corpus shapes at a spacing of 128;
+    past that the spacing is ceil(sqrt(2 n)) and the whole shared memory
+    (the orbit buffer too) stays within SMOOTH_SMEM_MAX; a contour past
+    that raises."""
     for n in (600, 5_059, 24_931, 60_601, 262_144, 1_000_000, 4_194_304):
         c = TCK.smooth_chunk(n)
         assert c >= TCK.SMOOTH_CHUNK
         assert 8 * (2 * -(-n // c) + c) <= 48 * 1024
-    with pytest.raises(ValueError):
-        TCK.smooth_chunk(4_194_305)
+    assert TCK.smooth_chunk(5_059) == TCK.SMOOTH_CHUNK
+    assert TCK.smooth_chunk(4_194_304) == TCK.SMOOTH_MAX_CHUNK
+    for n in (4_194_305, 4_500_600, 20_000_600, 98_224_128):
+        c = TCK.smooth_chunk(n)
+        assert (c - 1) ** 2 < 2 * n <= c * c
+        assert 8 * (TCK.SMOOTH_ORBIT_CAP + 2 * -(-n // c) + c) \
+            <= TCK.SMOOTH_SMEM_MAX
+    with pytest.raises(ValueError, match="longest"):
+        TCK.smooth_chunk(98_224_129)
 
 
 def test_plain_versions_on_cpu_tensors_count_no_launch():
@@ -976,6 +986,44 @@ def test_smooth_kernel_full_run(dev, cap, monkeypatch):
             assert tr[b, i, 1] & fl["tail_full"]
             assert not tr[b, i, 1] & (fl["prefix_orbit"] | fl["tail_orbit"]
                                       | fl["back_cycle"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F, cap", [(4_500_000, TCK.SMOOTH_ORBIT_CAP),
+                                    (4_500_000, 0), (20_000_000, 0)])
+def test_smooth_kernel_past_2048_checkpoints(dev, F, cap, monkeypatch):
+    """Kernel B on contours past 2048 checkpoints of 2048 frames (75 min
+    and 5.6 h of 1 ms frames), where the spacing is ceil(sqrt(2 n)):
+    with its orbit search and without it (cap 0: every tail runs in full
+    from its checkpoints, the spacing's one use), runs from the first
+    frame, in the middle and to the last: bit-equal to the host float64
+    filter on every section, one launch."""
+    rng = np.random.RandomState(9)
+    f0 = np.zeros((1, F), np.float32)
+    runs = ((0, 3_000), (F // 2, F // 2 + 900), (F // 2 + 1_000,
+            F // 2 + 1_040), (F - 9_000, F - 6_000), (F - 2_000, F))
+    for a, e in runs:
+        f0[0, a:e] = 150 + 20 * np.sin(np.arange(e - a) / 300) \
+            + 2 * rng.randn(e - a)
+    seen = []
+    monkeypatch.setattr(TCK, "contour_smooth",
+                        lambda *a: seen.append(a) or a[0])
+    TCD.smooth_f0_contour(torch.from_numpy(f0).to(dev))
+    f, st, ed, n_sec = seen[0]
+    assert TCK.smooth_chunk(F + 2 * TCK.LAG) > TCK.SMOOTH_MAX_CHUNK
+    monkeypatch.setattr(TCK, "SMOOTH_ORBIT_CAP", cap)
+    n0 = _build.launches["wt_contour_smooth"]
+    k, tr = TCK.contour_smooth_cuda(f, st, ed, n_sec, trace=True)
+    assert _build.launches["wt_contour_smooth"] == n0 + 1
+    k, tr = k.cpu().numpy(), tr.cpu().numpy()
+    st, ed, n_sec = st.cpu().numpy(), ed.cpu().numpy(), n_sec.cpu()
+    assert int(n_sec[0]) == len(runs)
+    lag = TCK.LAG
+    for i, (s, e, host, _) in enumerate(
+            _host_sections(f0, st, ed, n_sec, 0)):
+        assert k[0, s - lag:e - lag + 1].tobytes() == host.tobytes(), i
+        if cap == 0:
+            assert tr[0, i, 1] & TCK.SMOOTH_FLAGS["tail_full"]
 
 
 @pytest.mark.cuda

@@ -8,7 +8,19 @@ does; the port runs its plain kernel versions.  Inputs follow
 tests/test_longform.py's _long_utterance at 16 kHz, short enough for the
 tier-1 run.  Gates: tests/test_longform.py's, tightened for port against
 JAX (the same chunking on both sides): identical voicing, F0 RMSE < 0.01 Hz
-and max < 0.5 Hz on frames voiced in both."""
+and max < 0.5 Hz on frames voiced in both.
+
+The card's route (float32 on a CUDA device: the rows stitched on the
+device, the device contour chain) is held here on CPU tensors: its
+stitching against the host stitching bit for bit, the route each input
+takes, the device chain's plain versions against the host chain on the
+same candidates, its nearest-frame pick against the host chain's, and its
+refusal of a recording past the smoothing kernel's longest.  The kernels
+themselves on whole recordings (120 s, and 72 min past the smoothing
+kernel's former 2048 x 2048 frames): ``tests/test_wtbench_long.py``'s
+``cuda`` cases."""
+
+import types
 
 import numpy as np
 import pytest
@@ -18,7 +30,11 @@ from test_longform import _long_utterance
 from worldtpu.analysis import harvest as H
 from worldtpu.analysis import longform as JL
 from worldtpu_torch import convert
+from worldtpu_torch.analysis import contour_device as CDV
+from worldtpu_torch.analysis import harvest as TH
 from worldtpu_torch.analysis import longform as TL
+from worldtpu_torch.ops import contour_kernel as CK
+from wtbench import speech
 
 torch.set_num_threads(1)
 
@@ -87,3 +103,185 @@ def test_long_harvest_float16_raises():
     lh = TL.LongHarvest(16000, device="cpu")
     with pytest.raises(ValueError, match="unsupported dtype"):
         lh.compute(np.zeros(16000, np.float32), dtype=torch.float16)
+
+
+# -- the card's route, on CPU tensors ----------------------------------------
+
+FS_CARD = 22050
+
+
+def _stand_in_stages():
+    """Harvest's device stages with the refinement left out: the port's
+    decimation, band filter, zero crossings and candidate overlap, each
+    candidate scored by its agreement with the frame's median candidate,
+    then the pruning; memoized on each window's samples.  (The plain
+    refine takes ~20 s a 3 s window on one CPU thread; the stages are held
+    to JAX's by the tests above.)  Its candidates are float32, as the
+    card's are."""
+    memo = {}
+
+    def stages(x, mean_y, *, geo, grid=1):
+        outs = []
+        for row, m in zip(x, mean_y):
+            key = row.numpy().tobytes()
+            if key not in memo:
+                y = TH.decimate_stage(row[None], ratio=geo.ratio,
+                                      y_length=geo.y_length)
+                cand, _, _ = TH.candidates_stage(y, m[None], geo)
+                on = cand > 0
+                med = torch.where(on, cand, float("nan")).nanmedian(
+                    -1, keepdim=True).values
+                score = torch.where(
+                    on, 1.0 / (1.0 + 20.0 * (cand / med - 1.0).abs()), 0.0)
+                memo[key] = TH.remove_unreliable_stage(cand, score)
+            outs.append(memo[key])
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+    return stages
+
+
+@pytest.fixture(scope="module")
+def stitched():
+    """A 20.5 s speech recording at 22.05 kHz through LongHarvest's 2 s
+    chunks with 0.5 s halos in batches of 2 windows: 11 windows (chunk 0,
+    interior chunks, a clipped last chunk; the last batch one window),
+    stitched both ways: the host stitching's float64 numpy rows and the
+    device stitching's float32 tensors."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(TL, "harvest_device_stages", _stand_in_stages())
+    try:
+        n = int(20.5 * FS_CARD)
+        x = speech.utterances(FS_CARD, [n], 2 ** 31 + 2020, "cpu")[0]
+        x = x.astype(np.float32) / np.float32(32768.0)
+        lh = TL.LongHarvest(FS_CARD, chunk_ms=2000, halo_ms=500,
+                            f0_floor=40.0, device="cpu")
+        host = lh._candidates(x, torch.float32, 2)
+        card = lh._stitched(x, torch.float32, 2)
+    finally:
+        mp.undo()
+    return dict(lh=lh, n=n, host=host, card=card)
+
+
+def test_device_stitching_equals_the_host_stitching(stitched):
+    """Every kept frame range lands where the host stitching puts it, bit
+    for bit, in candidates and scores; the ranges tile the grid (the
+    device rows start uninitialized)."""
+    lh, n = stitched["lh"], stitched["n"]
+    (c_host, s_host), (c_card, s_card) = stitched["host"], stitched["card"]
+    assert lh.n_chunks(n) == 11
+    F_total = 11 * lh.chunk_ms + 1
+    assert lh._kept(10, F_total)[2] == F_total < 11 * lh.chunk_ms \
+        + lh.halo_ms
+    assert c_card.dtype == s_card.dtype == torch.float32
+    assert c_card.shape == s_card.shape == c_host.shape \
+        == (F_total, lh.geo.max_candidates)
+    assert np.array_equal(c_card.double().numpy(), c_host)
+    assert np.array_equal(s_card.double().numpy(), s_host)
+    assert (c_host > 0).any(axis=1).mean() > 0.5
+
+
+def test_device_chain_against_the_host_chain(stitched):
+    """The device chain (its plain versions on the CPU) over the device
+    stitching against the host chain over the host stitching: the same
+    tpos, voicing equal on at least 99.9% of the frames (any flipped frame
+    printed) and the F0 of frames voiced on both within 1e-6 relative in
+    the median and 1e-4 at most: fix steps 1, 3 and 4 compare and fill in
+    float32 there, in float64 here, on the same float32 candidates."""
+    lh, n = stitched["lh"], stitched["n"]
+    f0_host, tp_host = lh._contour(*stitched["host"], n)
+    f0_card, tp_card = lh._contour_on_card(*stitched["card"], n)
+    assert f0_card.dtype == tp_card.dtype == np.float64
+    assert np.array_equal(tp_card, tp_host)
+    assert f0_card.shape == f0_host.shape == (1 + int(1000 * n / FS_CARD
+                                                      / 5.0),)
+    flip = np.nonzero((f0_card > 0) != (f0_host > 0))[0]
+    print("flipped frames:", flip.tolist())
+    assert 1.0 - len(flip) / len(f0_host) >= 0.999
+    both = (f0_card > 0) & (f0_host > 0)
+    assert both.mean() > 0.5
+    rel = np.abs(f0_card[both] - f0_host[both]) / f0_host[both]
+    assert np.median(rel) < 1e-6 and rel.max() < 1e-4, (np.median(rel),
+                                                         rel.max())
+
+
+@pytest.mark.parametrize("device, dtype, route", [
+    ("cpu", torch.float32, "host"), ("cpu", torch.float64, "host"),
+    ("cuda", torch.float64, "host"), ("cuda", torch.float32, "card")])
+def test_route_follows_device_and_dtype(monkeypatch, device, dtype, route):
+    """float32 on a CUDA device stitches on the device and runs the device
+    chain; float64 on either device and float32 on the CPU land on the
+    host and run the host chain.  Both routes' functions are spies, so
+    no device is touched."""
+    calls = []
+
+    def spy(name, out):
+        def fn(self, *args):
+            calls.append(name)
+            return out
+        return fn
+    monkeypatch.setattr(TL.LongHarvest, "_candidates",
+                        spy("host stitching", ("c", "s")))
+    monkeypatch.setattr(TL.LongHarvest, "_contour",
+                        spy("host chain", ("f0", "tpos")))
+    monkeypatch.setattr(TL.LongHarvest, "_stitched",
+                        spy("card stitching", ("c", "s")))
+    monkeypatch.setattr(TL.LongHarvest, "_contour_on_card",
+                        spy("card chain", ("f0", "tpos")))
+    lh = TL.LongHarvest(16000, device=device)
+    assert lh.compute(np.zeros(32000, np.float32), dtype=dtype) \
+        == ("f0", "tpos")
+    assert calls == [f"{route} stitching", f"{route} chain"]
+
+
+@pytest.mark.parametrize("frame_period", [5.0, 10.0])
+def test_device_pick_equals_the_host_pick(monkeypatch, frame_period):
+    """The card route's nearest-frame pick picks the host chain's frames
+    at these frame periods on a contour of 10 million 1 ms frames (the
+    chain's own float32 times, ``contour_device.fix_and_smooth``, pick
+    others from frame 8,192,030 on): the chain's steps are replaced by
+    identities over a ramp, so its output is its pick."""
+    F = 10_000_000
+    ramp = torch.arange(F, dtype=torch.float32)[None]
+    monkeypatch.setattr(CDV, "search_f0_base", lambda c, s: ramp)
+    for name in ("fix_step1", "fix_step2", "fix_step3", "fix_step4",
+                 "smooth_f0_contour"):
+        monkeypatch.setattr(CDV, name, lambda f0, *a, **k: f0)
+    rows = torch.zeros(1, 1).expand(F, 1)
+    lh = TL.LongHarvest(16000, frame_period=frame_period, device="cpu")
+    f0, tpos = lh._contour_on_card(rows, rows, 16 * F)
+    want = np.minimum(F - 1, TL._matlab_round_np(tpos * 1000.0))
+    assert F - 1 - frame_period < want[-1] <= F - 1
+    assert len(f0) == 1 + int(F / frame_period)
+    assert np.array_equal(f0, want)
+
+
+def test_card_route_refuses_past_the_smoothing_kernels_longest(
+        monkeypatch):
+    """On the card a recording whose padded 1 ms contour is past the
+    smoothing kernel's longest (``contour_kernel.smooth_chunk``, about
+    27 h) raises ValueError before any stage runs; the longest it takes
+    goes on to the stages.  Only the length is read: no audio is made."""
+    calls = []
+    monkeypatch.setattr(TL.LongHarvest, "_stitched",
+                        lambda self, *a: calls.append("stages") or (0, 0))
+    monkeypatch.setattr(TL.LongHarvest, "_contour_on_card",
+                        lambda self, *a: calls.append("chain") or (0, 0))
+    lh = TL.LongHarvest(16000, device="cuda")
+
+    def fits(n_chunks):
+        try:
+            CK.smooth_chunk(n_chunks * lh.chunk_ms + 1 + 2 * CK.LAG)
+            return True
+        except ValueError:
+            return False
+    lo, hi = 1, 10 ** 6                    # fits(lo), not fits(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    assert 26 * 3600 * 1000 < lo * lh.chunk_ms < 28 * 3600 * 1000
+    longest = lo * lh.stride
+    with pytest.raises(ValueError, match="longest"):
+        lh.compute(types.SimpleNamespace(shape=(longest + 1,)))
+    assert calls == []
+    lh.compute(types.SimpleNamespace(shape=(longest,)))
+    assert calls == ["stages", "chain"]

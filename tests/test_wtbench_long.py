@@ -7,10 +7,10 @@ CPU.
 the reference's Threefry bits against ``synthesis/noise.py``'s; the
 reference importing nothing of the program; the chunk step's marks and
 spans leaving the outputs bit-equal (on the CPU ``stage`` launches
-nothing, so this holds that they are no-ops here; the ``cuda`` case holds
-the marks themselves on the card: ``python -m pytest
-tests/test_wtbench_long.py -m cuda --noconftest``); the entries'
-generators.
+nothing, so this holds that they are no-ops here; the ``cuda`` cases hold
+the marks themselves on the card, and LongHarvest's contour on the card
+against the host chain: ``python -m pytest tests/test_wtbench_long.py -m
+cuda --noconftest``); the entries' generators.
 """
 
 import subprocess
@@ -367,3 +367,102 @@ def test_chunk_step_marks_on_the_card(monkeypatch):
         "long_analysis", "long_timebase", "long_noise", "long_pulses",
         "long_ola") for side in ("in", "out")]
     assert marks == step * (n_chunks + 1), (len(marks), n_chunks)
+
+
+#: LongHarvest's device chain against the host chain on the same stitched
+#: candidates of a 120 s recording: voicing agreement, and the median over
+#: frames voiced on both of the relative F0 error
+CARD_VOICING, CARD_F0_REL_MED = 0.999, 1e-6
+
+
+@pytest.mark.cuda
+def test_long_harvest_contour_on_the_card():
+    """float32 LongHarvest on the card over 120 s of speech: its F0 against
+    the host chain run on the same candidates, downloaded (voicing
+    agreement >= CARD_VOICING, median relative error of frames voiced on
+    both < CARD_F0_REL_MED: fix steps 1, 3 and 4 decide in float32 on the
+    card, in float64 on the host); one launch each of the extend walk, the
+    merge and the smoothing kernel a call; and the ``contour`` stage's
+    marks once in a profiled call's device trace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the contour kernels)")
+    from worldtpu_torch import _build
+    n = 120 * FS
+    x = speech.utterances(FS, [n], SEED, "cuda")[0].astype(
+        np.float32) / np.float32(32768.0)
+    lh = TLF.LongHarvest(FS, f0_floor=40.0, f0_ceil=800.0, device="cuda")
+    lh.compute(x)                                   # builds the library
+    _build.launches.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        f0, tpos = lh.compute(x)
+        torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    for k in ("wt_extend", "wt_contour_merge", "wt_contour_smooth"):
+        assert counts.get(k) == 1, (k, counts)
+    marks = [e.name() for e in prof.profiler.kineto_results.events()
+             if str(e.device_type()).endswith("CUDA")
+             and e.name().startswith("wt_mark_contour_")]
+    assert sorted(marks) == ["wt_mark_contour_in", "wt_mark_contour_out"]
+    assert f0.shape == (24001,)
+    agree, both, rel = _against_the_host_chain(lh, x, f0, tpos)
+    assert both.mean() > 0.3
+    assert agree >= CARD_VOICING and np.median(rel) < CARD_F0_REL_MED
+
+
+def _against_the_host_chain(lh, x, f0, tpos):
+    """LongHarvest's F0 on the card (f0, tpos) against the host chain on
+    the same candidates, stitched again on the card and downloaded:
+    (voicing agreement, the frames voiced on both, their relative F0
+    errors); the flipped frames printed."""
+    n = len(x)
+    cand, score = lh._stitched(x, torch.float32,
+                               TLF.MAX_BATCH[torch.float32])
+    f0_card, tp_card = lh._contour_on_card(cand, score, n)
+    c64, s64 = cand.double().cpu().numpy(), score.double().cpu().numpy()
+    del cand, score
+    f0_host, tp_host = lh._contour(c64, s64, n)
+    assert np.array_equal(f0_card, f0) and np.array_equal(tp_card, tpos)
+    assert np.array_equal(tp_host, tpos)
+    agree = float(((f0 > 0) == (f0_host > 0)).mean())
+    both = (f0 > 0) & (f0_host > 0)
+    rel = np.abs(f0[both] - f0_host[both]) / f0_host[both]
+    print(f"voicing agreement {agree}, flipped frames "
+          f"{np.nonzero((f0 > 0) != (f0_host > 0))[0].tolist()}, voiced "
+          f"{both.mean():.3f}, relative F0 error median "
+          f"{np.median(rel):.3e}, max {rel.max():.3e}")
+    return agree, both, rel
+
+
+@pytest.mark.cuda
+def test_long_harvest_past_70_minutes_on_the_card():
+    """float32 LongHarvest on the card over 72 min (a padded contour past
+    2048 checkpoints of 2048 frames, the smoothing kernel's longest before
+    its spacing was chosen by the length): 20 s of speech at the start,
+    the middle and the end, digital silence between; its F0 against the
+    host chain on the same candidates with the 120 s case's limits, one
+    launch of each contour kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the contour kernels)")
+    from worldtpu_torch import _build
+    from worldtpu_torch.ops import contour_kernel as CK
+    n, m = 72 * 60 * FS, 20 * FS
+    x = np.zeros(n, np.float32)
+    for start, row in zip((0, n // 2, n - m),
+                          speech.utterances(FS, [m] * 3, SEED, "cuda")):
+        x[start:start + m] = row.astype(np.float32) / np.float32(32768.0)
+    lh = TLF.LongHarvest(FS, f0_floor=40.0, f0_ceil=800.0, device="cuda")
+    assert lh.n_chunks(n) * lh.chunk_ms + 1 + 2 * CK.LAG > \
+        CK.SMOOTH_CHECKPOINTS * CK.SMOOTH_MAX_CHUNK
+    _build.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    f0, tpos = lh.compute(x)
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(_build.launches)
+    for k in ("wt_extend", "wt_contour_merge", "wt_contour_smooth"):
+        assert counts.get(k) == 1, (k, counts)
+    print(f"peak device memory {peak / 2 ** 30:.3f} GiB")
+    assert f0.shape == (1 + 72 * 60 * 200,)
+    agree, both, rel = _against_the_host_chain(lh, x, f0, tpos)
+    assert both.sum() > 3 * 20 * 200 * 0.3
+    assert agree >= CARD_VOICING and np.median(rel) < CARD_F0_REL_MED

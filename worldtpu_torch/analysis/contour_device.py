@@ -179,18 +179,24 @@ def smooth_f0_contour(f0):
     return _ck.contour_smooth(f0, st, ed, st_mask.sum(1))
 
 
-def fix_and_smooth(candidates, scores, n_out, frame_period_ms, grid_ms=1):
-    """Full contour chain: candidates/scores [B, F, S] -> F0 at the output
-    frame grid [B, n_out] (fixF0Contour + smoothF0Contour + nearest-frame
-    subsampling of the internal grid)."""
-    F = candidates.shape[1]
+def contour_grid(candidates, scores, grid_ms=1):
+    """The contour chain on its internal grid: candidates/scores [B, F, S]
+    -> F0 [B, F] (fixF0Contour + smoothF0Contour)."""
     k = grid_ms
     c1 = search_f0_base(candidates, scores)
     c2 = fix_step1(c1, 0.008 * k)
     c1 = fix_step2(c2, max(1, round(6 / k)))
     c2 = fix_step3(c1, candidates, scores, 0.18 * k, grid_ms=k)
     best = fix_step4(c2, max(1, round(9 / k)))
-    f0_grid = smooth_f0_contour(best)
+    return smooth_f0_contour(best)
+
+
+def fix_and_smooth(candidates, scores, n_out, frame_period_ms, grid_ms=1):
+    """Full contour chain: candidates/scores [B, F, S] -> F0 at the output
+    frame grid [B, n_out] (``contour_grid`` + nearest-frame subsampling of
+    the internal grid, its times in the candidates' dtype)."""
+    F = candidates.shape[1]
+    f0_grid = contour_grid(candidates, scores, grid_ms)
     tpos = torch.arange(n_out, dtype=candidates.dtype,
                         device=candidates.device) * (frame_period_ms / 1000.0)
     x = tpos * (1000.0 / grid_ms)

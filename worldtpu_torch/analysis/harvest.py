@@ -728,10 +728,12 @@ class HarvestKernel(torch.nn.Module):
     ``worldtpu.analysis.harvest.HarvestKernel`` (without ``chunk`` and
     ``contour_on``: see ``compute_batch``) and return numpy.  float32 (the
     default here; the JAX class defaults to float64) is the production
-    path: input on the card always takes the device contour chain, CPU
-    input longer than HOST_CONTOUR_FRAMES frames
-    of the 1 ms grid the numpy float64 chain (``analysis.contour``)
-    instead, since the dense chain's section layout grows as F^2.  float64
+    path: input on the card always takes the device contour chain (its
+    kernels' memory is linear in F; ``LongHarvest`` runs the same chain
+    over whole recordings), CPU input longer than HOST_CONTOUR_FRAMES
+    frames of the 1 ms grid the numpy float64 chain (``analysis.contour``)
+    instead, since the chain's plain versions lay their sections out
+    densely, [sections, F], and so grow as F^2.  float64
     is the parity path (``harvest_parity``), on the card too: the
     reference's literal stages there, its int-truncated mean and contour on
     the host.

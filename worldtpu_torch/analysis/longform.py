@@ -1,21 +1,29 @@
 """Long-audio Harvest: overlap-save chunking of the F0 pipeline.
 
 Port of worldtpu/analysis/longform.py.  The single-utterance Harvest
-geometry is static in the input length, and the device contour chain lays
-its sections out as [F/7, F], so memory grows as F^2 on a long recording.
-Here the signal is cut into fixed windows (chunk + a halo on each side),
-batches of windows run the device stages (decimate -> band candidates ->
-refine -> prune: the zc and refine kernels on the card) at ONE geometry,
-the per-frame candidate and score rows are stitched on the 1 ms grid at
-chunk boundaries, and the host contour (``analysis.contour``) runs once
+geometry is static in the input length, and the contour chain's plain
+versions lay its sections out as [sections, F], so their memory grows as
+F^2 on a long recording.  Here the signal is cut into fixed windows
+(chunk + a halo on each side), batches of windows run the device stages
+(decimate -> band candidates -> refine -> prune: the zc and refine kernels
+on the card) at ONE geometry, the per-frame candidate and score rows are
+stitched on the 1 ms grid at chunk boundaries, and one contour chain runs
 over the whole recording (host ranges ``wt.long.harvest`` and
-``wt.long.contour``).  Every stage has finite temporal support
-(decimation IIR decay, filter taps, zero-crossing intervals <= 1/f0_floor,
-refine windows <= 3/f0_floor, +-1 frame pruning), so a ~1 s halo
-reproduces interior frames to float32 noise.  float64 runs the parity
-path's stages (``harvest._stages_f64``: the circular-FFT band filter, dense
-zero crossings, the dense refine; no kernel) on each batch of windows with
-mean 0, as ``worldtpu``'s float64 LongHarvest does.
+``wt.long.contour``).  Where the chain runs follows the input: float32 on
+the card stitches the rows into two [F, S] tensors on the device and runs
+the device chain (``contour_device.contour_grid``: the extend, merge and
+smoothing kernels, whose memory is linear in F) under the ``contour``
+stage's marks, then downloads the 1 ms F0 and picks the frame period's
+frames on the host, as the host chain does; every other input (float64, and
+every CPU tensor) lands each batch in float64 numpy and runs the host
+chain (``analysis.contour``), as ``worldtpu``'s LongHarvest does.  Every
+stage has finite temporal support (decimation IIR decay, filter taps,
+zero-crossing intervals <= 1/f0_floor, refine windows <= 3/f0_floor, +-1
+frame pruning), so a ~1 s halo reproduces interior frames to float32
+noise.  float64 runs the parity path's stages (``harvest._stages_f64``:
+the circular-FFT band filter, dense zero crossings, the dense refine; no
+kernel) on each batch of windows with mean 0, as ``worldtpu``'s float64
+LongHarvest does.
 
 Chunk boundaries sit on a grid where the sample index and the decimation
 grid align (u ms with fs*u/1000 an integer divisible by the decimation
@@ -29,10 +37,11 @@ import numpy as np
 import torch
 
 from worldtpu_torch import constants as C
-from worldtpu_torch.analysis import contour
+from worldtpu_torch.analysis import contour, contour_device
 from worldtpu_torch.analysis.harvest import (
     HarvestGeometry, as_tensor, check_dtype, harvest_device_stages)
-from worldtpu_torch.tracing import long_span
+from worldtpu_torch.ops.contour_kernel import LAG, smooth_chunk
+from worldtpu_torch.tracing import long_span, stage
 
 #: windows per batch of device stages, by dtype.  float32: 16 windows of
 #: 10 s at 22.05 kHz peak at 9-12 GiB on an H100 (PERF.md, section 5).
@@ -61,7 +70,13 @@ def _matlab_round_np(x):
 class LongHarvest:
     """Chunked Harvest for arbitrarily long single utterances, on
     ``device``.  One geometry (chunk_ms + 2*halo_ms of audio) serves any
-    input length; device memory is O(max_batch chunks), not O(recording)."""
+    input length.  float32 on the card keeps the recording's stitched
+    candidate rows and the device chain's [F] rows there: its device
+    memory grows with the recording (about 1.1 MB a second of audio, so
+    an 80 GB card holds about 20 h: PERF.md, section 7), and the
+    smoothing kernel takes up to about 27 h (``compute`` refuses a longer
+    recording before its stages run).  Every other route holds
+    O(max_batch chunks) on the device."""
 
     def __init__(self, fs, *, chunk_ms=8000, halo_ms=1000, frame_period=5.0,
                  f0_floor=C.FLOOR_F0, f0_ceil=C.CEIL_F0,
@@ -93,14 +108,42 @@ class LongHarvest:
         (f0 [n_out], tpos [n_out]) as float64 numpy, with
         n_out = 1 + 1000*n/fs/frame_period, like HarvestKernel.compute.
         ``max_batch``: windows per batch of device stages (default
-        MAX_BATCH of the dtype)."""
+        MAX_BATCH of the dtype).
+
+        float32 on a CUDA device keeps the candidates on the card and runs
+        the device contour chain there; float64, and any input on the CPU,
+        runs the host chain.  On the card a recording whose padded 1 ms
+        contour is past the smoothing kernel's longest (about 98 million
+        frames, 27 h: ``contour_kernel.smooth_chunk``) raises ValueError
+        before any stage runs."""
         n = int(x.shape[0])
         check_dtype(dtype)
+        batch = max_batch or MAX_BATCH[dtype]
+        if dtype == torch.float32 and self.device.type == "cuda":
+            f_total = self.n_chunks(n) * self.chunk_ms + 1
+            smooth_chunk(f_total + 2 * LAG)
+            with long_span("harvest"):
+                cand, score = self._stitched(x, dtype, batch)
+            with long_span("contour"):
+                return self._contour_on_card(cand, score, n)
         with long_span("harvest"):
-            cand, score = self._candidates(x, dtype,
-                                           max_batch or MAX_BATCH[dtype])
+            cand, score = self._candidates(x, dtype, batch)
         with long_span("contour"):
             return self._contour(cand, score, n)
+
+    def _kept(self, k, f_total):
+        """(global start, local start, global end) of the 1 ms frames
+        window k contributes: chunk 0 keeps global frames
+        [0, chunk_ms + halo_ms), chunk k keeps
+        [k*chunk_ms + halo_ms, (k+1)*chunk_ms + halo_ms), both clipped to
+        f_total."""
+        if k == 0:
+            glo, llo = 0, 0
+        else:
+            glo = k * self.chunk_ms + self.halo_ms
+            llo = 2 * self.halo_ms
+        return glo, llo, min((k + 1) * self.chunk_ms + self.halo_ms,
+                             f_total)
 
     def _windows(self, x, dtype):
         """(the zero-padded signal on the device, each window's start)."""
@@ -120,10 +163,13 @@ class LongHarvest:
 
     def _candidates(self, x, dtype, max_batch):
         """The stitched 1 ms (candidates, scores) [F_total, S] (float64
-        numpy) of the whole recording.  Batch k+1's device stages are
-        enqueued before batch k's download is waited on; on the card each
-        batch goes to pinned memory by a non-blocking copy behind an
-        event."""
+        numpy) of the whole recording, for the host chain.  Batch k+1's
+        device stages are enqueued before batch k's download is waited on;
+        on the card (float64) each batch goes to pinned memory by a
+        non-blocking copy behind an event.  On CPU tensors ``_stitched``
+        gives the same bits; this landing is kept for float64 on the card,
+        whose device memory it keeps at O(max_batch chunks) where
+        ``_stitched`` would hold the recording's float64 rows."""
         xp, starts = self._windows(x, dtype)
         g = self.geo
         n_chunks = len(starts)
@@ -134,17 +180,8 @@ class LongHarvest:
 
         def land(b0, finish):
             cand, score = finish()
-            # stitch kept frame ranges: chunk 0 keeps global 1-ms frames
-            # [0, chunk_ms + halo_ms), chunk k keeps
-            # [k*chunk_ms + halo_ms, (k+1)*chunk_ms + halo_ms)
             for i in range(len(cand)):
-                k = b0 + i
-                if k == 0:
-                    glo, llo = 0, 0
-                else:
-                    glo = k * self.chunk_ms + self.halo_ms
-                    llo = 2 * self.halo_ms
-                ghi = min((k + 1) * self.chunk_ms + self.halo_ms, F_total)
+                glo, llo, ghi = self._kept(b0 + i, F_total)
                 c_all[glo:ghi] = cand[i, llo:llo + ghi - glo]
                 s_all[glo:ghi] = score[i, llo:llo + ghi - glo]
 
@@ -182,12 +219,52 @@ class LongHarvest:
             return tuple(t.numpy() for t in out)
         return finish
 
+    def _stitched(self, x, dtype, max_batch):
+        """The stitched 1 ms (candidates, scores) [F_total, S] as tensors
+        in ``dtype`` where the windows run: each batch's device stages stay
+        there, and their kept frame ranges are copied in, device to
+        device.  Nothing waits for the device: batch k+1's stages are
+        enqueued behind batch k's copies."""
+        xp, starts = self._windows(x, dtype)
+        n_chunks = len(starts)
+        F_total = n_chunks * self.chunk_ms + 1
+        # the kept ranges tile [0, F_total), so every row is written
+        cand = torch.empty((F_total, self.geo.max_candidates), dtype=dtype,
+                           device=xp.device)
+        score = torch.empty_like(cand)
+        mean = torch.zeros((max_batch,), dtype=dtype, device=xp.device)
+        with torch.no_grad():
+            for b0 in range(0, n_chunks, max_batch):
+                rows = starts[b0:b0 + max_batch]
+                xb = torch.stack([xp[s:s + self.Tc] for s in rows])
+                c, sc = harvest_device_stages(xb, mean[:len(rows)],
+                                              geo=self.geo)
+                for i in range(len(rows)):
+                    glo, llo, ghi = self._kept(b0 + i, F_total)
+                    cand[glo:ghi] = c[i, llo:llo + ghi - glo]
+                    score[glo:ghi] = sc[i, llo:llo + ghi - glo]
+        return cand, score
+
+    def _contour_on_card(self, cand, score, n):
+        """The device contour chain over the stitched tensors [F_total, S]
+        under the ``contour`` stage, its 1 ms F0 downloaded once, and the
+        host chain's pick of the frame period: (f0 [n_out], tpos [n_out])
+        float64 numpy."""
+        with torch.no_grad(), stage("contour", cand.device):
+            f0_1ms = contour_device.contour_grid(cand[None], score[None],
+                                                 grid_ms=1)[0]
+        return self._pick(f0_1ms.cpu().numpy().astype(np.float64), n)
+
     def _contour(self, cand, score, n):
         """The host contour over the stitched grid and the pick of the
         frame period: (f0 [n_out], tpos [n_out]) float64 numpy."""
         best = contour.fix_f0_contour(cand, score)
-        f0_1ms = contour.smooth_f0_contour(best)
+        return self._pick(contour.smooth_f0_contour(best), n)
+
+    def _pick(self, f0_1ms, n):
+        """The nearest 1 ms frame of each frame period's time, in float64
+        (exact at any length): (f0 [n_out], tpos [n_out])."""
         n_out = 1 + int(1000.0 * n / self.fs / self.frame_period)
         tpos = np.arange(n_out) * self.frame_period / 1000.0
-        pick = np.minimum(len(cand) - 1, _matlab_round_np(tpos * 1000.0))
+        pick = np.minimum(len(f0_1ms) - 1, _matlab_round_np(tpos * 1000.0))
         return f0_1ms[pick], tpos

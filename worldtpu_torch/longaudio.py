@@ -8,7 +8,8 @@ response slab per utterance: fine for utterances, fatal for a 10-minute
 recording.  This module composes chunked pieces instead:
 
   - F0: analysis.longform.LongHarvest (overlap-save chunked Harvest, one
-    host contour).
+    contour chain over the whole recording: on the card in float32, on
+    the host otherwise).
   - Envelope and aperiodicity: frame-blocked CheapTrick + D4C.  Each block
     reads an audio slice with a halo covering the widest analysis window,
     so interior frames see the samples the unchunked analysis sees, and
@@ -63,7 +64,9 @@ Trace points (``tracing``): the chunk step marks its parts as the stages
 ``long_analysis``, ``long_timebase``, ``long_noise``, ``long_pulses`` and
 ``long_ola``, the prescan step its time base as ``long_prescan``, so every
 replay runs their marks; the host work is under ``wt.long.harvest``,
-``wt.long.contour`` (LongHarvest), ``wt.long.plan`` and ``wt.long.land``.
+``wt.long.contour`` (LongHarvest; in float32 on the card its contour is
+the device chain under the ``contour`` stage's marks), ``wt.long.plan``
+and ``wt.long.land``.
 ``LongPipeline.counts`` holds the last call's chunk steps and
 synthesized pulses, read with the overflow flags.
 

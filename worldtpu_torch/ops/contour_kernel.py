@@ -26,6 +26,8 @@ matmul.  A CPU tensor takes the plain version, a CUDA tensor the kernel.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as Fn
@@ -44,10 +46,16 @@ _BIQUAD_BLOCK = 128
 #: longer contours take the global-memory variant
 MERGE_SHARED_MAX_F = (227 * 1024 - 1024) // 4
 #: kernel B's checkpoint spacing in a tail it runs in full: at least this
-#: many samples, and at most SMOOTH_CHECKPOINTS checkpoints
+#: many samples, and at most SMOOTH_CHECKPOINTS checkpoints up to a
+#: spacing of SMOOTH_MAX_CHUNK; a longer contour takes the spacing
+#: ceil(sqrt(2 n)), which keeps its checkpoints and a chunk least
 SMOOTH_CHUNK = 128
 SMOOTH_CHECKPOINTS = 2048
 SMOOTH_MAX_CHUNK = 2048
+#: the dynamic shared memory a block may hold on the H100 (227 KB): kernel
+#: B's (SMOOTH_ORBIT_CAP + 2 ceil(n / chunk) + chunk) doubles stay within
+#: it up to a padded contour of about 98 million frames (27 h at 1 ms)
+SMOOTH_SMEM_MAX = 227 * 1024
 #: kernel B seeks the biquad's orbit on a held edge (and the backward
 #: pass's cycle) for this many steps, in blocks of 16, and keeps that many
 #: tail outputs in shared memory (beside 2 ceil(n / chunk) + chunk doubles
@@ -341,12 +349,18 @@ def contour_smooth_plain(f0, st, ed, n_sec):
 
 
 def smooth_chunk(n):
-    """Kernel B's checkpoint spacing for a padded contour of n frames."""
+    """Kernel B's checkpoint spacing for a padded contour of n frames: the
+    spacing decides only where the full run of a tail is restarted from,
+    not its bits.  Raises ValueError where the checkpoints and a chunk
+    would not fit in SMOOTH_SMEM_MAX."""
     chunk = max(SMOOTH_CHUNK, -(-n // SMOOTH_CHECKPOINTS))
     if chunk > SMOOTH_MAX_CHUNK:
+        chunk = math.isqrt(2 * n - 1) + 1
+    if 8 * (SMOOTH_ORBIT_CAP + 2 * -(-n // chunk) + chunk) > SMOOTH_SMEM_MAX:
         raise ValueError(f"a padded contour of {n} frames is past the "
-                         f"smoothing kernel's {SMOOTH_CHECKPOINTS} x "
-                         f"{SMOOTH_MAX_CHUNK} frames")
+                         f"smoothing kernel's longest: its checkpoints "
+                         f"would not fit in {SMOOTH_SMEM_MAX} bytes of "
+                         f"shared memory")
     return chunk
 
 

@@ -27,10 +27,11 @@ The long-audio path (``longaudio.py``) marks its chunk step and prescan
 as stages of their own (the six ``long_*`` stages, appended after the main
 path's), so a replayed chunk step is split on the device too; its host
 work has host ranges only (``long_span``): ``wt.long.harvest``
-(LongHarvest's device stages and the landing of their rows),
-``wt.long.contour`` (the host contour), ``wt.long.plan`` (the chunk plan
-and its device tables) and ``wt.long.land`` (the host accumulation of
-chunk buffers).
+(LongHarvest's device stages and the stitching of their rows),
+``wt.long.contour`` (its contour chain: in float32 on the card the device
+chain, inside the ``contour`` stage, and the download of its F0; else the
+host chain), ``wt.long.plan`` (the chunk plan and its device tables) and
+``wt.long.land`` (the host accumulation of chunk buffers).
 
 Every ``wt.*`` range of the port is opened here.  What reads them:
 ``wtbench/stages.py``.

@@ -878,7 +878,7 @@ def main(argv=None):
         _, n_path = count_syncs(torch, lambda: batch_wav_to_wav(x, noise,
                                                                 **kw))
         mean = torch.zeros(BATCH, device=dev)
-        hcand, hscore = H.harvest_device_stages(x, mean, geo=geo)
+        hcand, hscore = H.harvest_device_stages(x, geo=geo)
 
         def chain():
             return CDV.fix_and_smooth(hcand, hscore, n_grid, geo.frame_period)
@@ -1394,8 +1394,7 @@ def main(argv=None):
     for label, xl, gl, variant in long_inputs:
         gl = gl or H.HarvestGeometry(FS, xl.shape[1], f0_floor=40.0)
         with torch.no_grad():
-            cl, sl = H.harvest_device_stages(
-                xl, torch.zeros(1, device=dev), geo=gl)
+            cl, sl = H.harvest_device_stages(xl, geo=gl)
         _, _, _, info = contour_check(
             torch, label, cl, sl, gl.n_grid(), gl.frame_period,
             cycles_per_ms=cycles_per_ms if variant else None,
@@ -1463,8 +1462,7 @@ def main(argv=None):
             flips.append(i)
             with torch.no_grad():
                 cg, sg = H.harvest_device_stages(
-                    torch.tensor(xw, device=dev)[None],
-                    torch.zeros(1, device=dev), geo=hg.geo)
+                    torch.tensor(xw, device=dev)[None], geo=hg.geo)
             _, (margs, mkw), _, _ = chain_calls(
                 torch, CDV, CK, cg, sg, hg.geo.n_grid(), hg.geo.frame_period)
             chain_cpu = CDV.fix_and_smooth(cg.cpu(), sg.cpu(),
@@ -3253,8 +3251,7 @@ def long_audio(torch, dev, card, cycles_per_ms):
         with torch.no_grad():
             cu, su = (t[0].cpu().numpy().astype(np.float64)
                       for t in H.harvest_device_stages(
-                          torch.tensor(x, device=dev)[None],
-                          torch.zeros(1, device=dev), geo=geo))
+                          torch.tensor(x, device=dev)[None], geo=geo))
         return H.host_contour(cu, su, geo)
 
     def unchunked_card(x):
@@ -3615,7 +3612,6 @@ def long_audio(torch, dev, card, cycles_per_ms):
     # the device, and the device contour chain (F0 downloaded); then the
     # host chain on the same candidates, downloaded, against it
     xp, starts = lh._windows(rec, torch.float32)
-    mean = torch.zeros(16, device=dev)
     split = {"stages": [], "stages + stitching": [],
              "device contour chain": [], "download + host contour": []}
     for _ in range(2):
@@ -3625,20 +3621,18 @@ def long_audio(torch, dev, card, cycles_per_ms):
             for b0 in range(0, len(starts), 16):
                 rows = starts[b0:b0 + 16]
                 H.harvest_device_stages(torch.stack(
-                    [xp[s:s + lh.Tc] for s in rows]), mean[:len(rows)],
-                    geo=lh.geo)
+                    [xp[s:s + lh.Tc] for s in rows]), geo=lh.geo)
         torch.cuda.synchronize()
         split["stages"].append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        c, s_ = lh._stitched(rec, torch.float32, 16)
+        c, s_ = lh._stitched(rec, torch.float32, 16, lh.device)
         torch.cuda.synchronize()
         split["stages + stitching"].append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         f0_dc, _ = lh._contour_on_card(c, s_, len(rec))
         split["device contour chain"].append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        f0_hc, _ = lh._contour(c.double().cpu().numpy(),
-                               s_.double().cpu().numpy(), len(rec))
+        f0_hc, _ = lh._contour(c.cpu(), s_.cpu(), len(rec))
         split["download + host contour"].append(time.perf_counter() - t0)
     n_cand = c.shape[0]
     del xp, c, s_
@@ -3890,8 +3884,7 @@ def grid_phase(torch, dev, card, cycles_per_ms, x, noise, kw, audio_s):
         fflips = int(((fk > 0) != (fp > 0)).sum())
         r_ms = alone(r_seen, 30)
         # the extend walk of the grid-2 contour chain: its own arguments
-        hcand, hscore = H.harvest_device_stages(x, mean, geo=geo,
-                                                grid=GRID_FAST)
+        hcand, hscore = H.harvest_device_stages(x, geo=geo, grid=GRID_FAST)
         seen = []
         real_walk = extend_kernel.extend_walk
 
@@ -4018,7 +4011,7 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150,
     # group kept for the kernel checks
     lp.copy_synthesis(x60[:12 * FS], **syn)          # warm-up: plans
     split = collections.Counter()
-    real_s, real_c, real_h = LF.harvest_device_stages, lh._candidates, \
+    real_s, real_c, real_h = LF.harvest_device_stages, lh._stitched, \
         lh._contour
 
     def timed(name, fn, sync=False):
@@ -4060,7 +4053,7 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150,
 
     out, walls, peaks, splits, parts = {}, {}, {}, {}, {}
     LF.harvest_device_stages = timed("stages", real_s, sync=True)
-    lh._candidates = timed("candidates", harvest_peak(real_c))
+    lh._stitched = timed("stitching", harvest_peak(real_c))
     lh._contour = timed("host contour", real_h)
     LA.overlap_add = ola_spy
     try:
@@ -4074,18 +4067,18 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150,
             splits[par] = dict(split)
     finally:
         LF.harvest_device_stages = real_s
-        del lh._candidates, lh._contour
+        del lh._stitched, lh._contour
         LA.overlap_add = real_ola
     dur = len(x60) / FS
     n_w = lh.n_chunks(len(x60))
     for par, name in ((False, "sequential"), (True, "parallel")):
         sp = splits[par]
-        rest = walls[par] - sp["candidates"] - sp["host contour"]
+        rest = walls[par] - sp["stitching"] - sp["host contour"]
         log(f"(b) float64 LongPipeline, {dur:.2f} s, {name}: wall "
             f"{walls[par]:.2f} s = {dur / walls[par]:.2f}x realtime; "
             f"LongHarvest ({n_w} windows in {-(-n_w // m64)} batches): "
             f"device stages {sp['stages']:.3f} s, downloads and stitching "
-            f"{sp['candidates'] - sp['stages']:.3f} s, host contour "
+            f"{sp['stitching'] - sp['stages']:.3f} s, host contour "
             f"{sp['host contour']:.3f} s; the rest (analysis and synthesis)"
             f" {rest:.3f} s; peak device memory {gib(peaks[par]):.3f} GiB "
             f"({gib(peaks[par] - base):.3f} above the window run's base; "
@@ -4279,13 +4272,13 @@ def long_audio_f64(torch, dev, card, cycles_per_ms, x60, f0_32, x150,
 
     _build.launches.clear()
     peak_reset()
-    lh._candidates = harvest_peak(real_c)
+    lh._stitched = harvest_peak(real_c)
     try:
         t0 = time.perf_counter()
         y150, f150 = lp.copy_synthesis(x150, **syn)
         w150 = time.perf_counter() - t0
     finally:
-        del lh._candidates
+        del lh._stitched
     peak150, *parts150 = run_peak()
     counts = dict(_build.launches)
     extra = grow(x150, f150) - grow(x60, f0s)
@@ -4581,8 +4574,7 @@ def mesh_phase(torch, dev, card, x, noise, kw, x60):
     t_phase = time.perf_counter()
     with torch.no_grad():
         y_s, f0_s, _ = PB.batch_wav_to_wav(x, noise, **kw)
-        cand_s, score_s = H.harvest_device_stages(
-            x, torch.zeros(BATCH, device=dev), geo=kw["geo"])
+        cand_s, score_s = H.harvest_device_stages(x, geo=kw["geo"])
 
     # ---- (a) NCCL, a world of one, mesh (1, 1) ----
     PD.init_distributed()

@@ -207,8 +207,7 @@ def main(argv=None):
                       (f"the {CS.TEST_SIGNAL_S:g} s test signal", x60)):
         g = H.HarvestGeometry(CS.FS, xs.shape[1], f0_floor=40.0)
         with torch.no_grad():
-            cand, score = H.harvest_device_stages(
-                xs, torch.zeros(xs.shape[0], device=dev), geo=g)
+            cand, score = H.harvest_device_stages(xs, geo=g)
             _, (margs, mkw), _, _ = CS.chain_calls(
                 torch, CDV, CK, cand, score, g.n_grid(), g.frame_period)
             _, seen = CS.capture(_build, lambda: CK.contour_merge_cuda(

@@ -198,8 +198,7 @@ def _walk_inputs(stage_inputs):
     """The extend walk's inputs as fix_step3 builds them, captured from a
     real contour chain on the card."""
     x, geo, _ = stage_inputs
-    cand, score = TH.harvest_device_stages(
-        x, torch.zeros(x.shape[0], device=x.device), geo=geo)
+    cand, score = TH.harvest_device_stages(x, geo=geo)
     seen = []
     real = TE.extend_walk
 

@@ -55,8 +55,8 @@ def test_harvest_kernel_compute_batch(contour_on, monkeypatch):
     hk = TH.HarvestKernel(fs, len(x), f0_floor=40.0, device="cpu")
     out = hk.compute_batch(xb, check_capacity=True)
     n_out = hk.get_samples()
-    ref = TH.harvest_device_full(torch.tensor(xb), torch.zeros(2),
-                                 geo=hk.geo, n_out=n_out).numpy()
+    ref = TH.harvest_device_full(torch.tensor(xb), geo=hk.geo,
+                                 n_out=n_out).numpy()
     monkeypatch.setattr(H, "_use_refine_kernel_default",
                         lambda: "interpret")
     jk = H.HarvestKernel(fs, len(x), f0_floor=40.0)
@@ -104,7 +104,7 @@ def test_world_analyze_matches_stages():
     tpos, f0, spec, ap = world.analyze(x, pitch_scale=1.1)
     geo = TH.HarvestGeometry(fs, len(x), f0_floor=40.0)
     xt = torch.tensor(x)[None]
-    f0_ref = TH.harvest_device_full(xt, torch.zeros(1), geo=geo,
+    f0_ref = TH.harvest_device_full(xt, geo=geo,
                                     n_out=geo.n_grid()) * 1.1
     tp = torch.arange(geo.n_grid(), dtype=torch.float32) * 0.005
     ck = world._cheaptrick._kernel

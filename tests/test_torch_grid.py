@@ -91,7 +91,7 @@ def stages():
         grid=GRID)) for xi in x]
     tgeo = convert.geometry_from_worldtpu(vars(geo))
     cand, score = TH.harvest_device_stages(
-        torch.tensor(x), torch.zeros(len(x)), geo=tgeo, grid=GRID)
+        torch.tensor(x), geo=tgeo, grid=GRID)
     return x, geo, tgeo, flat, cand.numpy(), score.numpy()
 
 
@@ -383,8 +383,7 @@ def test_float64_with_grid_2_raises(entry, tmp_path):
                 x, dtype=f64)
         elif entry == "stages":
             geo = TH.HarvestGeometry(f.fs, len(x))
-            TH.harvest_device_stages(torch.tensor(x)[None],
-                                     torch.zeros(1, dtype=f64), geo=geo,
+            TH.harvest_device_stages(torch.tensor(x)[None], geo=geo,
                                      grid=GRID)
         else:
             geo = TH.HarvestGeometry(f.fs, len(x))

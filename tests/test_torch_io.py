@@ -195,8 +195,7 @@ def test_contour_equal_t22_candidates():
     geo = TH.HarvestGeometry(fs, len(x), f0_floor=40.0)
     with torch.no_grad():
         cand, score = TH.harvest_device_stages(
-            torch.tensor(x, dtype=torch.float32)[None], torch.zeros(1),
-            geo=geo)
+            torch.tensor(x, dtype=torch.float32)[None], geo=geo)
     cand = cand[0].numpy().astype(np.float64)
     score = score[0].numpy().astype(np.float64)
     best, _ = _assert_contours_equal(cand, score)
@@ -290,7 +289,7 @@ def test_cli_and_host_contour_without_worldtpu(tmp_path):
     geo = TH.HarvestGeometry(fs, len(x), f0_floor=40.0)
     with torch.no_grad():
         cand, score = TH.harvest_device_stages(
-            torch.tensor(np.stack([x, 0.6 * x])), torch.zeros(2), geo=geo)
+            torch.tensor(np.stack([x, 0.6 * x])), geo=geo)
     grid = jcontour.smooth_f0_contour(jcontour.fix_f0_contour(
         cand[0].numpy().astype(np.float64),
         score[0].numpy().astype(np.float64)))

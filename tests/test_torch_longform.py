@@ -11,9 +11,9 @@ JAX (the same chunking on both sides): identical voicing, F0 RMSE < 0.01 Hz
 and max < 0.5 Hz on frames voiced in both.
 
 The card's route (float32 on a CUDA device: the rows stitched on the
-device, the device contour chain) is held here on CPU tensors: its
-stitching against the host stitching bit for bit, the route each input
-takes, the device chain's plain versions against the host chain on the
+device, the device contour chain) is held here on CPU tensors: the one
+stitching against each window's kept rows placed by hand, the route each
+input takes, the device chain's plain versions against the host chain on the
 same candidates, its nearest-frame pick against the host chain's, and its
 refusal of a recording past the smoothing kernel's longest.  The kernels
 themselves on whole recordings (120 s, and 72 min past the smoothing
@@ -120,14 +120,14 @@ def _stand_in_stages():
     card's are."""
     memo = {}
 
-    def stages(x, mean_y, *, geo, grid=1):
+    def stages(x, mean_y=None, *, geo, grid=1):
         outs = []
-        for row, m in zip(x, mean_y):
+        for row in x:
             key = row.numpy().tobytes()
             if key not in memo:
                 y = TH.decimate_stage(row[None], ratio=geo.ratio,
                                       y_length=geo.y_length)
-                cand, _, _ = TH.candidates_stage(y, m[None], geo)
+                cand, _, _ = TH.candidates_stage(y, torch.zeros(1), geo)
                 on = cand > 0
                 med = torch.where(on, cand, float("nan")).nanmedian(
                     -1, keepdim=True).values
@@ -145,51 +145,69 @@ def stitched():
     """A 20.5 s speech recording at 22.05 kHz through LongHarvest's 2 s
     chunks with 0.5 s halos in batches of 2 windows: 11 windows (chunk 0,
     interior chunks, a clipped last chunk; the last batch one window),
-    stitched both ways: the host stitching's float64 numpy rows and the
-    device stitching's float32 tensors."""
+    stitched on CPU tensors, and the stand-in stages it ran."""
+    stages = _stand_in_stages()
     mp = pytest.MonkeyPatch()
-    mp.setattr(TL, "harvest_device_stages", _stand_in_stages())
+    mp.setattr(TL, "harvest_device_stages", stages)
     try:
         n = int(20.5 * FS_CARD)
         x = speech.utterances(FS_CARD, [n], 2 ** 31 + 2020, "cpu")[0]
         x = x.astype(np.float32) / np.float32(32768.0)
         lh = TL.LongHarvest(FS_CARD, chunk_ms=2000, halo_ms=500,
                             f0_floor=40.0, device="cpu")
-        host = lh._candidates(x, torch.float32, 2)
-        card = lh._stitched(x, torch.float32, 2)
+        rows = lh._stitched(x, torch.float32, 2, torch.device("cpu"))
     finally:
         mp.undo()
-    return dict(lh=lh, n=n, host=host, card=card)
+    return dict(lh=lh, n=n, x=x, rows=rows, stages=stages)
 
 
-def test_device_stitching_equals_the_host_stitching(stitched):
-    """Every kept frame range lands where the host stitching puts it, bit
-    for bit, in candidates and scores; the ranges tile the grid (the
-    device rows start uninitialized)."""
-    lh, n = stitched["lh"], stitched["n"]
-    (c_host, s_host), (c_card, s_card) = stitched["host"], stitched["card"]
+def test_stitching_tiles_the_grid(stitched):
+    """The stitched rows against each window's kept rows placed by hand,
+    bit for bit, in candidates and scores: window 0 is the recording's
+    first Tc samples and keeps frames [0, chunk + halo); window k starts
+    halo samples before chunk k and keeps its frames [2 halo, 2 halo +
+    chunk), globally [k chunk + halo, (k + 1) chunk + halo), the last
+    clipped to the grid.  The kept ranges tile the grid once each (the
+    rows start uninitialized)."""
+    lh, n, x = stitched["lh"], stitched["n"], stitched["x"]
+    c_st, s_st = stitched["rows"]
     assert lh.n_chunks(n) == 11
     F_total = 11 * lh.chunk_ms + 1
     assert lh._kept(10, F_total)[2] == F_total < 11 * lh.chunk_ms \
         + lh.halo_ms
-    assert c_card.dtype == s_card.dtype == torch.float32
-    assert c_card.shape == s_card.shape == c_host.shape \
-        == (F_total, lh.geo.max_candidates)
-    assert np.array_equal(c_card.double().numpy(), c_host)
-    assert np.array_equal(s_card.double().numpy(), s_host)
-    assert (c_host > 0).any(axis=1).mean() > 0.5
+    assert c_st.dtype == s_st.dtype == torch.float32
+    assert c_st.shape == s_st.shape == (F_total, lh.geo.max_candidates)
+    chunk, halo = lh.chunk_ms * FS_CARD // 1000, lh.halo_ms * FS_CARD // 1000
+    xp = np.zeros(11 * chunk + halo, np.float32)
+    xp[:n] = x
+    c_hand, s_hand = torch.zeros_like(c_st), torch.zeros_like(s_st)
+    times = np.zeros(F_total, int)
+    for k in range(11):
+        lo = 0 if k == 0 else k * chunk - halo
+        w = torch.from_numpy(xp[lo:lo + lh.Tc])[None]
+        assert w.shape[1] == lh.Tc
+        c, s = stitched["stages"](w, geo=lh.geo)
+        g0 = 0 if k == 0 else k * lh.chunk_ms + lh.halo_ms
+        g1 = min((k + 1) * lh.chunk_ms + lh.halo_ms, F_total)
+        l0 = 0 if k == 0 else 2 * lh.halo_ms
+        c_hand[g0:g1], s_hand[g0:g1] = c[0, l0:l0 + g1 - g0], \
+            s[0, l0:l0 + g1 - g0]
+        times[g0:g1] += 1
+    assert (times == 1).all()
+    assert torch.equal(c_st, c_hand) and torch.equal(s_st, s_hand)
+    assert (c_hand > 0).any(dim=1).double().mean() > 0.5
 
 
 def test_device_chain_against_the_host_chain(stitched):
-    """The device chain (its plain versions on the CPU) over the device
-    stitching against the host chain over the host stitching: the same
-    tpos, voicing equal on at least 99.9% of the frames (any flipped frame
-    printed) and the F0 of frames voiced on both within 1e-6 relative in
-    the median and 1e-4 at most: fix steps 1, 3 and 4 compare and fill in
-    float32 there, in float64 here, on the same float32 candidates."""
+    """The device chain (its plain versions on the CPU) against the host
+    chain over the same stitched rows: the same tpos, voicing equal on at
+    least 99.9% of the frames (any flipped frame printed) and the F0 of
+    frames voiced on both within 1e-6 relative in the median and 1e-4 at
+    most: fix steps 1, 3 and 4 compare and fill in float32 there, in
+    float64 here, on the same float32 candidates."""
     lh, n = stitched["lh"], stitched["n"]
-    f0_host, tp_host = lh._contour(*stitched["host"], n)
-    f0_card, tp_card = lh._contour_on_card(*stitched["card"], n)
+    f0_host, tp_host = lh._contour(*stitched["rows"], n)
+    f0_card, tp_card = lh._contour_on_card(*stitched["rows"], n)
     assert f0_card.dtype == tp_card.dtype == np.float64
     assert np.array_equal(tp_card, tp_host)
     assert f0_card.shape == f0_host.shape == (1 + int(1000 * n / FS_CARD
@@ -204,33 +222,37 @@ def test_device_chain_against_the_host_chain(stitched):
                                                          rel.max())
 
 
-@pytest.mark.parametrize("device, dtype, route", [
-    ("cpu", torch.float32, "host"), ("cpu", torch.float64, "host"),
-    ("cuda", torch.float64, "host"), ("cuda", torch.float32, "card")])
-def test_route_follows_device_and_dtype(monkeypatch, device, dtype, route):
-    """float32 on a CUDA device stitches on the device and runs the device
-    chain; float64 on either device and float32 on the CPU land on the
-    host and run the host chain.  Both routes' functions are spies, so
-    no device is touched."""
+@pytest.mark.parametrize("device, dtype, into, chain", [
+    ("cpu", torch.float32, "cpu", "host"), ("cpu", torch.float64, "cpu",
+                                            "host"),
+    ("cuda", torch.float64, "cpu", "host"), ("cuda", torch.float32, "cuda",
+                                             "card")])
+def test_route_follows_device_and_dtype(monkeypatch, device, dtype, into,
+                                        chain):
+    """float32 on a CUDA device stitches the rows on the device and runs
+    the device chain; float64 on either device and float32 on the CPU
+    stitch them on the host (pinned when the windows run on the card) and
+    run the host chain.  The stitching and both chains are spies, so no
+    device is touched."""
     calls = []
 
-    def spy(name, out):
+    def stitching(self, x, dtype_, max_batch, into_):
+        calls.append(f"stitching into {into_.type}")
+        return "c", "s"
+
+    def spy(name):
         def fn(self, *args):
             calls.append(name)
-            return out
+            return "f0", "tpos"
         return fn
-    monkeypatch.setattr(TL.LongHarvest, "_candidates",
-                        spy("host stitching", ("c", "s")))
-    monkeypatch.setattr(TL.LongHarvest, "_contour",
-                        spy("host chain", ("f0", "tpos")))
-    monkeypatch.setattr(TL.LongHarvest, "_stitched",
-                        spy("card stitching", ("c", "s")))
+    monkeypatch.setattr(TL.LongHarvest, "_stitched", stitching)
+    monkeypatch.setattr(TL.LongHarvest, "_contour", spy("host chain"))
     monkeypatch.setattr(TL.LongHarvest, "_contour_on_card",
-                        spy("card chain", ("f0", "tpos")))
+                        spy("card chain"))
     lh = TL.LongHarvest(16000, device=device)
     assert lh.compute(np.zeros(32000, np.float32), dtype=dtype) \
         == ("f0", "tpos")
-    assert calls == [f"{route} stitching", f"{route} chain"]
+    assert calls == [f"stitching into {into}", f"{chain} chain"]
 
 
 @pytest.mark.parametrize("frame_period", [5.0, 10.0])

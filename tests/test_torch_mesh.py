@@ -17,6 +17,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 import jax
@@ -273,6 +274,54 @@ def test_init_distributed_world_of_one(monkeypatch):
         np.testing.assert_array_equal(TD.gather_rows(g).numpy(), xb)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def t16_head():
+    """Two 0.51 s rows of t16 (511 frames of the 1 ms grid, 152 bands)
+    and their single-device stages."""
+    f = load_fixture("t16")
+    x = np.asarray(f.x, np.float32)
+    x = torch.tensor(np.stack([x[:8160], 0.5 * x[4000:12160]]))
+    geo = TH.HarvestGeometry(f.fs, x.shape[1])
+    return x, geo, TH.harvest_device_stages(x, geo=geo)
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+def test_split_stages_equal_the_whole(t16_head, parts):
+    """harvest_device_stages divided into ``parts`` parts (2: the frame
+    slabs padded; 3: the band subsets and the frame slabs padded), each in
+    a thread of its own whose ``join`` concatenates every part's tensor
+    across a barrier, against ``WHOLE`` bit for bit in every part: the
+    division the mesh's time ranks make, without ranks or collectives."""
+    x, geo, (want_c, want_s) = t16_head
+    barrier = threading.Barrier(parts, timeout=RANK_TIMEOUT_S)
+    slots, got, errors = [None] * parts, [None] * parts, []
+
+    def run(p):
+        def join(t, axis):
+            slots[p] = t
+            barrier.wait()
+            out = torch.cat(slots, dim=axis)
+            barrier.wait()
+            return out
+        try:
+            got[p] = TH.harvest_device_stages(
+                x, geo=geo, split=TH.Split(parts, p, join))
+        except BaseException as e:
+            errors.append(e)
+            barrier.abort()
+            raise
+    threads = [threading.Thread(target=run, args=(p,))
+               for p in range(parts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=RANK_TIMEOUT_S)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert (want_c > 0).sum() > 500
+    for c, s in got:
+        assert torch.equal(c, want_c) and torch.equal(s, want_s)
 
 
 def test_batch_harvest_device_stages_bitwise(ranks):

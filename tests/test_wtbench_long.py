@@ -76,7 +76,7 @@ def _stand_in_stages():
             memo[key] = RH.remove_unreliable_stage(cand, score)
         return memo[key]
 
-    def stages(x, mean_y, *, geo, grid=1):
+    def stages(x, mean_y=None, *, geo, grid=1):
         outs = [one(x[b], geo) for b in range(x.shape[0])]
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))
@@ -417,11 +417,10 @@ def _against_the_host_chain(lh, x, f0, tpos):
     errors); the flipped frames printed."""
     n = len(x)
     cand, score = lh._stitched(x, torch.float32,
-                               TLF.MAX_BATCH[torch.float32])
+                               TLF.MAX_BATCH[torch.float32], lh.device)
     f0_card, tp_card = lh._contour_on_card(cand, score, n)
-    c64, s64 = cand.double().cpu().numpy(), score.double().cpu().numpy()
-    del cand, score
-    f0_host, tp_host = lh._contour(c64, s64, n)
+    cand, score = cand.cpu(), score.cpu()
+    f0_host, tp_host = lh._contour(cand, score, n)
     assert np.array_equal(f0_card, f0) and np.array_equal(tp_card, tpos)
     assert np.array_equal(tp_host, tpos)
     agree = float(((f0 > 0) == (f0_host > 0)).mean())

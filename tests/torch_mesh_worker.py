@@ -30,7 +30,7 @@ def _stages_case(inp, mesh, out):
     out["stages_cand"] = cand.to_local().numpy()
     out["stages_score"] = score.to_local().numpy()
     r = torch.distributed.get_rank()
-    rc, rs = H.harvest_device_stages(x[r:r + 1], torch.zeros(1), geo=geo)
+    rc, rs = H.harvest_device_stages(x[r:r + 1], geo=geo)
     out["stages_ref_cand"] = rc.numpy()
     out["stages_ref_score"] = rs.numpy()
 

@@ -12,6 +12,9 @@ per-frame stage and the contour chain then run on 1/k of the frames.  Each
 stage of the main path runs inside ``tracing.stage``: a host range named
 ``wt.<stage>`` and, on the card, device marks that a replayed graph keeps,
 so one profiled call gives the time of every stage.
+``harvest_device_stages`` is the one float32 stage sequence: a single
+device runs it with ``WHOLE``, ``parallel.batch`` with the ``Split`` of a
+mesh's time ranks.
 
 float32 is the production path above.  float64 is the parity path, with the
 reference's literal semantics and no hand-written kernel (the JAX package's
@@ -23,7 +26,9 @@ with full FFTs, pruning over every slot, and the host contour
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -35,7 +40,8 @@ from worldtpu_torch.ops import refine_kernel as _refine
 from worldtpu_torch.ops import zc_kernel as _zc
 from worldtpu_torch.ops.fftutil import get_suitable_fft_size
 from worldtpu_torch.ops.interp import interp1
-from worldtpu_torch.ops.numeric import device_cache, matlab_round, rdiv
+from worldtpu_torch.ops.numeric import (device_cache, download,
+                                       matlab_round, rdiv)
 from worldtpu_torch.parallel import graphs as _graphs
 from worldtpu_torch.tracing import stage
 
@@ -120,6 +126,44 @@ class HarvestGeometry:
     def n_grid(self):
         """Output frames at frame_period (reference getSamples)."""
         return 1 + int(1000.0 * self.x_length / self.fs / self.frame_period)
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How one call's Harvest work is divided: this is part ``index`` of
+    ``parts``, and ``join(t, axis)`` concatenates every part's ``t`` along
+    ``axis`` in part order (``parallel.batch`` gathers over a mesh's time
+    ranks).  ``WHOLE``, one part, adds no operation to the stages."""
+    parts: int
+    index: int
+    join: Callable
+
+    def pad(self, t, axis):
+        """t zero-padded along ``axis`` to a multiple of the parts (t
+        itself when it is one)."""
+        n = (-t.shape[axis]) % self.parts
+        if not n:
+            return t
+        return Fn.pad(t, (0, 0) * (t.dim() - 1 - axis) + (0, n))
+
+    def slab(self, t, axis):
+        """This part's slab of ``pad(t, axis)`` along ``axis`` (t itself
+        with one part)."""
+        if self.parts == 1:
+            return t
+        t = self.pad(t, axis)
+        n = t.shape[axis] // self.parts
+        return t.narrow(axis, self.index * n, n).contiguous()
+
+    def join_all(self, ts, axis):
+        """Each tensor of ts (one shape) joined along ``axis``, in one
+        join (ts itself with one part)."""
+        if self.parts == 1:
+            return ts
+        return tuple(self.join(torch.stack(ts), axis + 1))
+
+
+WHOLE = Split(1, 0, lambda t, axis: t)
 
 
 # ---------------------------------------------------------------------------
@@ -400,22 +444,63 @@ def _raw_candidates_f64(ym, geo, tpos):
     return torch.cat(parts, dim=1)
 
 
+@device_cache(maxsize=16)
+def _band_shard(geo, t, nt, device):
+    """Part t's stratified band subset of the geometry (nt parts): (its
+    real bands as a tuple, or None for all of them; the number of zero
+    rows padding it; the bounds [rows] float32 on device, 1.0 on the
+    padding, or None for all bands)."""
+    Nb = geo.n_channels
+    if nt == 1:
+        return None, 0, None
+    nbl = -(-Nb // nt)
+    bands = tuple(range(t, Nb, nt))
+    bounds = np.ones(nbl, np.float32)
+    bounds[:len(bands)] = np.asarray(geo.boundary_f0, np.float32)[
+        list(bands)]
+    return bands, nbl - len(bands), torch.as_tensor(bounds, device=device)
+
+
+def _bands_to_candidates(y, geo, split):
+    """Stages B+C of decimated float32 signals y [B, L]: the split's part
+    of the bands (band g in part g % parts; the band axis padded to
+    parts * ceil(Nb / parts) with zero rows of bound 1.0, which give no
+    candidate) through the filter bank and the zc kernel, every part's raw
+    candidates joined in global band order, then detection and overlap on
+    the whole band axis -> (overlapped [B, F, S], raw [B, Nb, F], base
+    [B, F, cb]).  Every band keeps the taps and bank width of its filter
+    group in the whole bank."""
+    bands, n_pad, bounds = _band_shard(geo, split.index, split.parts,
+                                       y.device)
+    with stage("band_filter", y.device):
+        filt = band_filter(y, geo, bands)
+        if n_pad:
+            filt = torch.cat([filt, filt.new_zeros(
+                (filt.shape[0], n_pad, filt.shape[2]))], dim=1)
+    with stage("zc", y.device):
+        raw = _zc.band_candidates(filt, geo, bounds)
+    with stage("detect_overlap", y.device):
+        if split.parts > 1:
+            # joined rows are (part p, row j) <-> global band p + j*parts
+            raw = split.join(raw[:, :, None], 2)
+            raw = raw.reshape(raw.shape[0], -1, raw.shape[-1])[
+                :, :geo.n_channels]
+        base = _detect_candidates(raw, geo)
+        return _overlap_candidates(base), raw, base
+
+
 def candidates_stage(y, mean_y, geo):
-    """Stages B+C: decimated y [B, L] -> (overlapped candidates [B, F, S],
-    raw band candidates [B, Nb, F], base candidates [B, F, cb])."""
+    """Stages B+C: decimated y [B, L] less its means mean_y [B] ->
+    (overlapped candidates [B, F, S], raw band candidates [B, Nb, F], base
+    candidates [B, F, cb])."""
+    ym = y - mean_y[:, None]
     if y.dtype == torch.float64:
         tpos = torch.arange(geo.f0_length, dtype=y.dtype,
                             device=y.device) * (geo.grid_ms / 1000.0)
-        raw = _raw_candidates_f64(y - mean_y[:, None], geo, tpos)
+        raw = _raw_candidates_f64(ym, geo, tpos)
         base = _detect_candidates(raw, geo)
         return _overlap_candidates(base), raw, base
-    with stage("band_filter", y.device):
-        filt = band_filter(y - mean_y[:, None], geo)
-    with stage("zc", y.device):
-        raw = _zc.band_candidates(filt, geo)
-    with stage("detect_overlap", y.device):
-        base = _detect_candidates(raw, geo)
-        return _overlap_candidates(base), raw, base
+    return _bands_to_candidates(ym, geo, WHOLE)
 
 
 # ---------------------------------------------------------------------------
@@ -592,25 +677,35 @@ def check_grid(dtype, grid):
                          f"reference's 1 ms grid only")
 
 
-def harvest_device_stages(x, mean_y, *, geo, grid=1):
+def harvest_device_stages(x, *, geo, grid=1, split=WHOLE):
     """decimate -> candidates -> refine -> prune for x [B, T] on the
     ``grid`` ms candidate grid (float32; float64 takes 1 only).
     Returns (candidates, scores) [B, F, S], F = geo.with_grid(grid)
     .f0_length: refined slots compacted for float32, in the candidates' own
-    slots for float64."""
+    slots for float64.
+
+    float32 divides the work by ``split``: the part's bands through the
+    filter bank and the zc kernel, the joined raw candidates detected and
+    overlapped on the whole band axis, the refine kernel on the part's
+    slab of ceil(F / parts) frames (compaction is per frame, so a slab
+    compacts as the whole does), the joined refined candidates and scores
+    pruned on every frame (the prune reads neighbouring frames).  float64
+    runs the parity stages on the whole axis, whatever the split."""
     check_grid(x.dtype, grid)
     geo_k = geo.with_grid(grid)
     with stage("decimate", x.device):
         y = decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
     if x.dtype == torch.float64:
-        return _stages_f64(y, mean_y, geo)
-    tpos = torch.arange(geo_k.f0_length, dtype=x.dtype,
-                        device=x.device) * (geo_k.grid_ms / 1000.0)
-    cand, _, _ = candidates_stage(y, mean_y, geo_k)
+        return _stages_f64(y, y.new_zeros(y.shape[0]), geo)
+    F = geo_k.f0_length
+    tpos = torch.arange(F, dtype=x.dtype, device=x.device) \
+        * (geo_k.grid_ms / 1000.0)
+    cand, _, _ = _bands_to_candidates(y, geo_k, split)
     cand, score = _refine.refine_stage(
-        y - mean_y[:, None], cand, tpos, geo=geo_k,
+        y, split.slab(cand, 1), split.slab(tpos, 0), geo=geo_k,
         dedup_tol=REFINE_DEDUP_TOL)
-    return prune_compacted(cand, score)
+    cand, score = split.join_all((cand, score), 1)
+    return prune_compacted(cand[:, :F], score[:, :F])
 
 
 def prune_compacted(cand, score):
@@ -626,17 +721,20 @@ def prune_compacted(cand, score):
         return Fn.pad(c, (0, S - w)), Fn.pad(s, (0, S - w))
 
 
-def harvest_device_full(x, mean_y, *, geo, n_out, grid=1):
+def harvest_device_full(x, *, geo, n_out, grid=1, split=WHOLE):
     """Full Harvest wav -> F0 at frame_period: x [B, T] -> [B, n_out].
-    float32 runs the stages and the device contour chain on the ``grid``
-    ms candidate grid with the mean ``mean_y`` [B]; float64 takes
+    float32 runs the stages (divided by ``split``) and the device contour
+    chain on the ``grid`` ms candidate grid with mean 0; float64 takes
     ``harvest_parity`` (its own int-truncated mean, the host contour, the
-    1 ms grid)."""
+    1 ms grid, n_out = geo.n_grid() only)."""
     check_grid(x.dtype, grid)
     if x.dtype == torch.float64:
+        if n_out != geo.n_grid():
+            raise ValueError(f"float64 Harvest gives geo.n_grid() = "
+                             f"{geo.n_grid()} frames, not {n_out}")
         return harvest_parity(x, geo=geo)
     from worldtpu_torch.analysis import contour_device as CDV
-    cand, score = harvest_device_stages(x, mean_y, geo=geo, grid=grid)
+    cand, score = harvest_device_stages(x, geo=geo, grid=grid, split=split)
     with stage("contour", x.device):
         return CDV.fix_and_smooth(cand, score, n_out, geo.frame_period,
                                   grid_ms=grid)
@@ -861,26 +959,17 @@ class HarvestKernel(torch.nn.Module):
         with torch.no_grad():
             if (x.device.type == "cpu"
                     and self.geo.f0_length > HOST_CONTOUR_FRAMES):
-                mean = torch.zeros(x.shape[0], dtype=x.dtype)
                 cand, score = (
                     _narrow(t, transfer_dtype).to(torch.float64).numpy()
-                    for t in harvest_device_stages(x, mean, geo=self.geo,
+                    for t in harvest_device_stages(x, geo=self.geo,
                                                    grid=self.grid_ms))
                 return lambda: [(host_contour(c, s, self.geo, self.grid_ms),
                                  tpos) for c, s in zip(cand, score)]
             f0, _ = self(x)
-        done = None
-        if x.device.type != "cpu":
-            host = torch.empty(f0.shape, dtype=f0.dtype, pin_memory=True)
-            host.copy_(f0, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            f0 = host
+        wait = download(f0)
 
         def finish():
-            if done is not None:
-                done.synchronize()
-            f0s = f0.numpy().astype(np.float64)
+            f0s = wait().numpy().astype(np.float64)
             return [(f0s[i], tpos) for i in range(len(f0s))]
         return finish
 
@@ -888,8 +977,7 @@ class HarvestKernel(torch.nn.Module):
 def _forward(x, *, geo, grid):
     """HarvestKernel.forward's program: x [B, x_length] -> (f0, tpos)."""
     n_out = geo.n_grid()
-    mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-    f0 = harvest_device_full(x, mean, geo=geo, n_out=n_out, grid=grid)
+    f0 = harvest_device_full(x, geo=geo, n_out=n_out, grid=grid)
     tpos = torch.arange(n_out, dtype=x.dtype, device=x.device) \
         * (geo.frame_period / 1000.0)
     return f0, tpos

@@ -15,8 +15,10 @@ the device chain (``contour_device.contour_grid``: the extend, merge and
 smoothing kernels, whose memory is linear in F) under the ``contour``
 stage's marks, then downloads the 1 ms F0 and picks the frame period's
 frames on the host, as the host chain does; every other input (float64, and
-every CPU tensor) lands each batch in float64 numpy and runs the host
-chain (``analysis.contour``), as ``worldtpu``'s LongHarvest does.  Every
+every CPU tensor) stitches the rows on the host (in pinned memory when the
+windows run on the card) and runs the host chain (``analysis.contour``) on
+them in float64, as ``worldtpu``'s LongHarvest does.  One stitching
+serves both, the route naming where its rows go.  Every
 stage has finite temporal support (decimation IIR decay, filter taps,
 zero-crossing intervals <= 1/f0_floor, refine windows <= 3/f0_floor, +-1
 frame pruning), so a ~1 s halo reproduces interior frames to float32
@@ -119,16 +121,17 @@ class LongHarvest:
         n = int(x.shape[0])
         check_dtype(dtype)
         batch = max_batch or MAX_BATCH[dtype]
-        if dtype == torch.float32 and self.device.type == "cuda":
+        on_card = dtype == torch.float32 and self.device.type == "cuda"
+        if on_card:
             f_total = self.n_chunks(n) * self.chunk_ms + 1
             smooth_chunk(f_total + 2 * LAG)
-            with long_span("harvest"):
-                cand, score = self._stitched(x, dtype, batch)
-            with long_span("contour"):
-                return self._contour_on_card(cand, score, n)
         with long_span("harvest"):
-            cand, score = self._candidates(x, dtype, batch)
+            cand, score = self._stitched(
+                x, dtype, batch, self.device if on_card
+                else torch.device("cpu"))
         with long_span("contour"):
+            if on_card:
+                return self._contour_on_card(cand, score, n)
             return self._contour(cand, score, n)
 
     def _kept(self, k, f_total):
@@ -161,88 +164,39 @@ class LongHarvest:
                         for k in range(1, n_chunks)]
         return xp, starts
 
-    def _candidates(self, x, dtype, max_batch):
-        """The stitched 1 ms (candidates, scores) [F_total, S] (float64
-        numpy) of the whole recording, for the host chain.  Batch k+1's
-        device stages are enqueued before batch k's download is waited on;
-        on the card (float64) each batch goes to pinned memory by a
-        non-blocking copy behind an event.  On CPU tensors ``_stitched``
-        gives the same bits; this landing is kept for float64 on the card,
-        whose device memory it keeps at O(max_batch chunks) where
-        ``_stitched`` would hold the recording's float64 rows."""
-        xp, starts = self._windows(x, dtype)
-        g = self.geo
-        n_chunks = len(starts)
-        S = g.max_candidates
-        F_total = n_chunks * self.chunk_ms + 1
-        c_all = np.zeros((F_total, S))
-        s_all = np.zeros((F_total, S))
-
-        def land(b0, finish):
-            cand, score = finish()
-            for i in range(len(cand)):
-                glo, llo, ghi = self._kept(b0 + i, F_total)
-                c_all[glo:ghi] = cand[i, llo:llo + ghi - glo]
-                s_all[glo:ghi] = score[i, llo:llo + ghi - glo]
-
-        mean = torch.zeros((max_batch,), dtype=dtype, device=self.device)
-        pending = None
-        for b0 in range(0, n_chunks, max_batch):
-            rows = starts[b0:b0 + max_batch]
-            xb = torch.stack([xp[s:s + self.Tc] for s in rows])
-            queued = (b0, self._enqueue(xb, mean[:len(rows)], g))
-            if pending is not None:
-                land(*pending)
-            pending = queued
-        land(*pending)
-        return c_all, s_all
-
-    def _enqueue(self, xb, mean, geo):
-        """Start the device stages of the windows xb [B, Tc]; returns a
-        function that waits for them and gives (cand, score) [B, F, S] as
-        numpy."""
-        with torch.no_grad():
-            out = harvest_device_stages(xb, mean, geo=geo)
-        done = None
-        if xb.device.type != "cpu":
-            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    for t in out]
-            for h, t in zip(host, out):
-                h.copy_(t, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            out = host
-
-        def finish():
-            if done is not None:
-                done.synchronize()
-            return tuple(t.numpy() for t in out)
-        return finish
-
-    def _stitched(self, x, dtype, max_batch):
-        """The stitched 1 ms (candidates, scores) [F_total, S] as tensors
-        in ``dtype`` where the windows run: each batch's device stages stay
-        there, and their kept frame ranges are copied in, device to
-        device.  Nothing waits for the device: batch k+1's stages are
-        enqueued behind batch k's copies."""
+    def _stitched(self, x, dtype, max_batch, into):
+        """The stitched 1 ms (candidates, scores) [F_total, S] in ``dtype``
+        on the device ``into``: each batch of windows runs its device
+        stages where the windows lie, and its kept frame ranges are copied
+        in.  Nothing waits for the device until every batch is enqueued:
+        on the card batch k+1's stages queue behind batch k's copies.  Rows
+        on the host filled from the card are pinned, copied into without
+        blocking and waited for once at the end, so the card holds
+        O(max_batch windows)."""
         xp, starts = self._windows(x, dtype)
         n_chunks = len(starts)
         F_total = n_chunks * self.chunk_ms + 1
+        pin = into.type == "cpu" and xp.device.type != "cpu"
         # the kept ranges tile [0, F_total), so every row is written
-        cand = torch.empty((F_total, self.geo.max_candidates), dtype=dtype,
-                           device=xp.device)
-        score = torch.empty_like(cand)
-        mean = torch.zeros((max_batch,), dtype=dtype, device=xp.device)
+        cand, score = (torch.empty(
+            (F_total, self.geo.max_candidates), dtype=dtype, device=into,
+            pin_memory=pin) for _ in range(2))
+
+        def place(b0, c, sc):
+            for i in range(c.shape[0]):
+                glo, llo, ghi = self._kept(b0 + i, F_total)
+                cand[glo:ghi].copy_(c[i, llo:llo + ghi - glo],
+                                    non_blocking=True)
+                score[glo:ghi].copy_(sc[i, llo:llo + ghi - glo],
+                                     non_blocking=True)
+
         with torch.no_grad():
             for b0 in range(0, n_chunks, max_batch):
-                rows = starts[b0:b0 + max_batch]
-                xb = torch.stack([xp[s:s + self.Tc] for s in rows])
-                c, sc = harvest_device_stages(xb, mean[:len(rows)],
-                                              geo=self.geo)
-                for i in range(len(rows)):
-                    glo, llo, ghi = self._kept(b0 + i, F_total)
-                    cand[glo:ghi] = c[i, llo:llo + ghi - glo]
-                    score[glo:ghi] = sc[i, llo:llo + ghi - glo]
+                xb = torch.stack([xp[s:s + self.Tc]
+                                  for s in starts[b0:b0 + max_batch]])
+                place(b0, *harvest_device_stages(xb, geo=self.geo))
+        if pin:
+            torch.cuda.current_stream(xp.device).synchronize()
         return cand, score
 
     def _contour_on_card(self, cand, score, n):
@@ -256,9 +210,11 @@ class LongHarvest:
         return self._pick(f0_1ms.cpu().numpy().astype(np.float64), n)
 
     def _contour(self, cand, score, n):
-        """The host contour over the stitched grid and the pick of the
-        frame period: (f0 [n_out], tpos [n_out]) float64 numpy."""
-        best = contour.fix_f0_contour(cand, score)
+        """The host contour over the stitched CPU tensors [F_total, S], in
+        float64, and the pick of the frame period: (f0 [n_out],
+        tpos [n_out]) float64 numpy."""
+        best = contour.fix_f0_contour(cand.double().numpy(),
+                                      score.double().numpy())
         return self._pick(contour.smooth_f0_contour(best), n)
 
     def _pick(self, f0_1ms, n):

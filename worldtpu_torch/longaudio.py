@@ -91,6 +91,7 @@ from worldtpu_torch.analysis.d4c import (d4c_frames, d4c_max_half_c,
 from worldtpu_torch.analysis.harvest import as_tensor, check_dtype
 from worldtpu_torch.analysis.longform import LongHarvest
 from worldtpu_torch.ops.interp import interp1
+from worldtpu_torch.ops.numeric import download
 from worldtpu_torch.ops.ola_kernel import overlap_add
 from worldtpu_torch.parallel import graphs as _graphs
 from worldtpu_torch.synthesis import noise as N
@@ -605,19 +606,10 @@ def _programs(call):
 
 
 def _download(buf):
-    """A function that waits for buf [G, n] and gives it as numpy: on the
-    card a non-blocking copy to pinned memory behind an event."""
-    if buf.device.type == "cpu":
-        return buf.numpy
-    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-    host.copy_(buf, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-
-    def finish():
-        done.synchronize()
-        return host.numpy()
-    return finish
+    """A function that waits for buf [G, n] and gives it as numpy
+    (``numeric.download``)."""
+    wait = download(buf)
+    return lambda: wait().numpy()
 
 
 def _land(y, p, k0, finish):

@@ -7,7 +7,8 @@ quotient feeds an integer truncation or rounding (window half-widths,
 harmonic counts), so those decisions match the reference's.  The scalar operand is filled on
 the tensor's device (``torch.full``): a tensor built from a Python value
 and moved there would be a blocking host-to-device copy.  Constants
-copied from host data are made once and kept by ``device_cache``.
+copied from host data are made once and kept by ``device_cache``;
+results go the other way by ``download``.
 """
 
 from __future__ import annotations
@@ -64,6 +65,23 @@ def device_cache(maxsize):
 
         return get
     return wrap
+
+
+def download(t):
+    """A function that waits for t and gives it on the host: on the card a
+    non-blocking copy to pinned memory behind an event, started now; t
+    itself on the CPU."""
+    if t.device.type == "cpu":
+        return lambda: t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return host
+    return wait
 
 
 @contextlib.contextmanager

@@ -29,9 +29,11 @@ data shard's rows) or DTensors placed (Shard(0), Replicate()) on the mesh
 None)): each rank holds its data shard's rows; ``distributed.gather_rows``
 gives the global array on any backend (``DTensor.full_tensor()`` of CUDA
 DTensors crashed gloo ranks, torch 2.11).  The kernels see plain
-local tensors.  With one time rank the mesh path runs the single-device
-stages' operations on each data shard, so a (1, 1) mesh gives the
-single-device result bit for bit.
+local tensors.  Each entry point has one body, which the single-device
+call runs with ``harvest.WHOLE`` and the mesh call on each data shard
+with the ``harvest.Split`` of its time ranks; with one time rank that
+split adds no operation, so a (1, 1) mesh gives the single-device result
+bit for bit by construction.
 
 float64 under a mesh: the port's float64 Harvest is the parity path
 (``harvest_parity``: the host int-truncated mean and contour), not JAX's
@@ -44,14 +46,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as Fn
 
 from worldtpu_torch.analysis import harvest as _hv
 from worldtpu_torch.analysis.cheaptrick import cheaptrick_frames
 from worldtpu_torch.analysis.d4c import d4c_frames
-from worldtpu_torch.ops import refine_kernel as _refine
-from worldtpu_torch.ops import zc_kernel as _zc
-from worldtpu_torch.ops.numeric import device_cache
 from worldtpu_torch.parallel import graphs as _graphs
 from worldtpu_torch.synthesis import synthesis as _syn
 from worldtpu_torch.tracing import stage
@@ -98,14 +96,6 @@ def make_mesh(n_data=None, n_time=1, device_type=None):
     return init_device_mesh(device_type, shape, mesh_dim_names=MESH_DIMS)
 
 
-def _time_coords(mesh):
-    """(n_time, this rank's time index) of a ('data', 'time') mesh."""
-    if tuple(mesh.mesh_dim_names or ()) != MESH_DIMS:
-        raise ValueError(f"expected a mesh with dims {MESH_DIMS}, got "
-                         f"{mesh.mesh_dim_names}")
-    return mesh.size(1), mesh.get_local_rank("time")
-
-
 def _local(a, mesh):
     """This rank's rows of ``a``: a DTensor's local tensor (placed (Shard
     (0), Replicate()) on a mesh of this shape), or the data shard's rows
@@ -135,13 +125,18 @@ def _global(t, mesh):
                               run_check=False)
 
 
-def _gather_time(t, mesh, axis):
-    """The shards along ``axis`` of every time rank, joined in rank order
-    (t itself with one time rank)."""
+def _time_split(mesh):
+    """The ``harvest.Split`` of one data shard's work over the time ranks
+    of a ('data', 'time') mesh, the parts joined by all-gathers over
+    'time'."""
     from worldtpu_torch.parallel.distributed import all_gather
-    if mesh.size(1) == 1:
-        return t
-    return torch.cat(list(all_gather(t, mesh, "time")), dim=axis)
+    if tuple(mesh.mesh_dim_names or ()) != MESH_DIMS:
+        raise ValueError(f"expected a mesh with dims {MESH_DIMS}, got "
+                         f"{mesh.mesh_dim_names}")
+
+    def join(t, axis):
+        return torch.cat(list(all_gather(t, mesh, "time")), dim=axis)
+    return _hv.Split(mesh.size(1), mesh.get_local_rank("time"), join)
 
 
 def batch_copy_synthesis(x, f0, tpos, noise, *, fs, fft_size,
@@ -163,38 +158,30 @@ def batch_copy_synthesis(x, f0, tpos, noise, *, fs, fft_size,
         (y [B, out_length], spec [B, F, K], ap [B, F, K]); with
         ``return_overflow`` a trailing [B] bool of pulse-bound overflows.
     """
+    kw = dict(fs=fs, fft_size=fft_size, max_half_window=max_half_window,
+              frame_period_s=frame_period_s, out_length=out_length,
+              max_pulses=max_pulses)
     if mesh is None:
-        spec, ap = _analysis(x, f0, tpos, fs=fs, fft_size=fft_size,
-                             max_half_window=max_half_window)
-        y, ovf = _syn.synthesis_frames_impl(
-            f0, spec, ap, noise, fs=fs, fft_size=fft_size,
-            frame_period_s=frame_period_s, out_length=out_length,
-            max_pulses=max_pulses, return_overflow=True)
-        return (y, spec, ap, ovf) if return_overflow else (y, spec, ap)
-    outs = _copy_synthesis_local(
-        _local(x, mesh), _local(f0, mesh), tpos, _local(noise, mesh),
-        mesh=mesh, fs=fs, fft_size=fft_size,
-        max_half_window=max_half_window, frame_period_s=frame_period_s,
-        out_length=out_length, max_pulses=max_pulses)
-    outs = tuple(_global(o, mesh) for o in outs)
+        outs = _copy_synthesis(x, f0, tpos, noise, **kw)
+    else:
+        outs = tuple(_global(o, mesh) for o in _copy_synthesis(
+            _local(x, mesh), _local(f0, mesh), tpos, _local(noise, mesh),
+            split=_time_split(mesh), **kw))
     return outs if return_overflow else outs[:3]
 
 
-def _copy_synthesis_local(x, f0, tpos, noise, *, mesh, fs, fft_size,
-                          max_half_window, frame_period_s, out_length,
-                          max_pulses):
-    """One data shard's copy-synthesis with the analysis split over the
-    time ranks: (y, spec, ap, overflow) of the shard's rows."""
-    nt, t = _time_coords(mesh)
-    F = f0.shape[1]
-    if F % nt:
-        raise ValueError(f"{F} frames do not split over {nt} time ranks; "
-                         f"pad F0 with unvoiced frames")
-    fl = F // nt
-    fr = slice(t * fl, (t + 1) * fl)
-    spec, ap = _analysis(x, f0[:, fr].contiguous(), tpos[fr], fs=fs,
+def _copy_synthesis(x, f0, tpos, noise, *, fs, fft_size, max_half_window,
+                    frame_period_s, out_length, max_pulses,
+                    split=_hv.WHOLE):
+    """One data shard's copy-synthesis with the analysis' frames divided
+    by ``split``: (y, spec, ap, overflow) of the shard's rows."""
+    if f0.shape[1] % split.parts:
+        raise ValueError(f"{f0.shape[1]} frames do not split over "
+                         f"{split.parts} time ranks; pad F0 with unvoiced "
+                         f"frames")
+    spec, ap = _analysis(x, split.slab(f0, 1), split.slab(tpos, 0), fs=fs,
                          fft_size=fft_size, max_half_window=max_half_window)
-    spec, ap = _gather_time(torch.stack([spec, ap]), mesh, axis=2)
+    spec, ap = split.join_all((spec, ap), 1)
     y, ovf = _syn.synthesis_frames_impl(
         f0, spec, ap, noise, fs=fs, fft_size=fft_size,
         frame_period_s=frame_period_s, out_length=out_length,
@@ -221,36 +208,32 @@ def batch_wav_to_wav(x, noise, *, geo, fs, fft_size, max_half_window,
     Returns (y, f0 [B, n_grid]), plus a [B] bool of pulse-bound overflows
     with ``return_overflow`` (size max_pulses with
     synthesis.capacity_max_pulses and check it)."""
+    kw = dict(geo=geo, fs=fs, fft_size=fft_size,
+              max_half_window=max_half_window, frame_period_s=frame_period_s,
+              out_length=out_length, max_pulses=max_pulses,
+              return_overflow=return_overflow, grid_ms=grid_ms)
     if mesh is None:
-        return _graphs.call(
-            _wav_to_wav, (x, noise), pitch_scale, geo=geo, fs=fs,
-            fft_size=fft_size, max_half_window=max_half_window,
-            frame_period_s=frame_period_s, out_length=out_length,
-            max_pulses=max_pulses, return_overflow=return_overflow,
-            grid_ms=grid_ms)
+        return _graphs.call(_wav_to_wav, (x, noise), pitch_scale, **kw)
     x_l = _local(x, mesh)
-    n_grid = geo.n_grid()
-    f0 = _harvest_f0_local(x_l, geo, n_grid, mesh, grid_ms)
-    f0 = _scale(f0, _graphs.scale_buffer(pitch_scale, x_l))
-    f0_p = Fn.pad(f0, (0, (-n_grid) % mesh.size(1)))
-    y, _, _, ovf = _copy_synthesis_local(
-        x_l, f0_p, _frame_times(f0_p.shape[1], geo, x_l),
-        _local(noise, mesh), mesh=mesh, fs=fs, fft_size=fft_size,
-        max_half_window=max_half_window, frame_period_s=frame_period_s,
-        out_length=out_length, max_pulses=max_pulses)
-    outs = tuple(_global(o, mesh) for o in (y, f0, ovf))
-    return outs if return_overflow else outs[:2]
+    return tuple(_global(o, mesh) for o in _wav_to_wav(
+        x_l, _local(noise, mesh), _graphs.scale_buffer(pitch_scale, x_l),
+        split=_time_split(mesh), **kw))
 
 
 def _wav_to_wav(x, noise, scale, *, geo, fs, fft_size, max_half_window,
                 frame_period_s, out_length, max_pulses, return_overflow,
-                grid_ms):
-    """batch_wav_to_wav on one device, the pitch scale a 0-d tensor."""
-    f0, tpos = _scaled_f0(x, geo, scale, grid_ms)
-    y, _, _, ovf = batch_copy_synthesis(
-        x, f0, tpos, noise, fs=fs, fft_size=fft_size,
-        max_half_window=max_half_window, frame_period_s=frame_period_s,
-        out_length=out_length, max_pulses=max_pulses, return_overflow=True)
+                grid_ms, split=_hv.WHOLE):
+    """batch_wav_to_wav of one data shard, the pitch scale a 0-d tensor,
+    Harvest and the analysis' frames divided by ``split``."""
+    n_grid = geo.n_grid()
+    f0 = _scale(_hv.harvest_device_full(x, geo=geo, n_out=n_grid,
+                                        grid=grid_ms, split=split), scale)
+    f0_p = split.pad(f0, 1)
+    y, _, _, ovf = _copy_synthesis(
+        x, f0_p, _frame_times(f0_p.shape[1], geo, x), noise, fs=fs,
+        fft_size=fft_size, max_half_window=max_half_window,
+        frame_period_s=frame_period_s, out_length=out_length,
+        max_pulses=max_pulses, split=split)
     return (y, f0, ovf) if return_overflow else (y, f0)
 
 
@@ -264,24 +247,25 @@ def batch_analyze(x, *, geo, fs, fft_size, max_half_window, pitch_scale=1.0,
     analysis over 'data' only (as JAX's), DTensor outputs.  Without a mesh,
     float32 CUDA input runs as a captured CUDA graph from the second call of
     a shape on, as ``batch_wav_to_wav``."""
+    kw = dict(geo=geo, fs=fs, fft_size=fft_size,
+              max_half_window=max_half_window, grid_ms=grid_ms)
     if mesh is None:
-        return _graphs.call(_analyze, (x,), pitch_scale, geo=geo, fs=fs,
-                            fft_size=fft_size,
-                            max_half_window=max_half_window, grid_ms=grid_ms)
+        return _graphs.call(_analyze, (x,), pitch_scale, **kw)
     x_l = _local(x, mesh)
+    return tuple(_global(o, mesh) for o in _analyze(
+        x_l, _graphs.scale_buffer(pitch_scale, x_l), split=_time_split(mesh),
+        **kw))
+
+
+def _analyze(x, scale, *, geo, fs, fft_size, max_half_window, grid_ms,
+             split=_hv.WHOLE):
+    """batch_analyze of one data shard, the pitch scale a 0-d tensor,
+    Harvest divided by ``split`` and the analysis whole."""
     n_grid = geo.n_grid()
-    f0 = _harvest_f0_local(x_l, geo, n_grid, mesh, grid_ms)
-    f0 = _scale(f0, _graphs.scale_buffer(pitch_scale, x_l))
-    spec, ap = _analysis(x_l, f0, _frame_times(n_grid, geo, x_l), fs=fs,
+    f0 = _scale(_hv.harvest_device_full(x, geo=geo, n_out=n_grid,
+                                        grid=grid_ms, split=split), scale)
+    spec, ap = _analysis(x, f0, _frame_times(n_grid, geo, x), fs=fs,
                          fft_size=fft_size, max_half_window=max_half_window)
-    return tuple(_global(o, mesh) for o in (f0, spec, ap))
-
-
-def _analyze(x, scale, *, geo, fs, fft_size, max_half_window, grid_ms):
-    """batch_analyze on one device, the pitch scale a 0-d tensor."""
-    f0, tpos = _scaled_f0(x, geo, scale, grid_ms)
-    spec, ap = _analysis(x, f0, tpos, fs=fs, fft_size=fft_size,
-                         max_half_window=max_half_window)
     return f0, spec, ap
 
 
@@ -290,22 +274,18 @@ def batch_harvest_device_stages(x, *, geo, mesh, grid_ms=1):
     """Harvest's stages (decimate -> band filter -> zc candidates ->
     detection and overlap -> refinement -> prune) of x [B, T] under the
     mesh: (candidates, scores) [B, F, S] as DTensors, F =
-    geo.with_grid(grid_ms).f0_length, the single-device
-    ``harvest_device_stages`` with mean 0.
+    geo.with_grid(grid_ms).f0_length: ``harvest_device_stages`` of each
+    data shard, divided over the time ranks (the counterpart of
+    worldtpu's batch_harvest_device_stages).
 
-    float32 (the counterpart of worldtpu's batch_harvest_device_stages):
-    each rank filters and runs the zc kernel on the stratified band subset
-    of its time index (global bands t, t + nt, ...; the band axis padded
-    to nt * ceil(Nb / nt) with zero rows of bound 1.0, which give no
-    candidate), all-gathers the raw candidates over 'time' in global band
-    order, detects and overlaps on the whole band axis, runs the refine
-    kernel on its slab of ceil(F / nt) frames (compaction is per frame, so
-    a slab compacts as the whole does), all-gathers the refined candidates
-    and scores, and prunes every frame (the prune reads neighbouring
-    frames).  Every band keeps the taps and bank width of its
-    single-device filter group.  float64: the parity stages on the data
-    shard, not split over 'time'."""
-    cand, score = _stages_local(_local(x, mesh), geo, mesh, grid_ms)
+    float32: each rank filters and runs the zc kernel on the stratified
+    band subset of its time index (global bands t, t + nt, ...),
+    all-gathers the raw candidates over 'time', runs the refine kernel on
+    its slab of ceil(F / nt) frames and all-gathers the refined
+    candidates and scores.  float64: the parity stages on the data shard,
+    not split over 'time'."""
+    cand, score = _hv.harvest_device_stages(
+        _local(x, mesh), geo=geo, grid=grid_ms, split=_time_split(mesh))
     return _global(cand, mesh), _global(score, mesh)
 
 
@@ -315,78 +295,9 @@ def batch_harvest_f0(x, *, geo, n_out, mesh, grid_ms=1):
     float32: ``batch_harvest_device_stages`` and the device contour chain
     (the extend kernel) on each data shard; float64: ``harvest_parity`` on
     each data shard (n_out must be geo.n_grid())."""
-    f0 = _harvest_f0_local(_local(x, mesh), geo, n_out, mesh, grid_ms)
-    return _global(f0, mesh)
-
-
-def _harvest_f0_local(x, geo, n_out, mesh, grid):
-    """F0 [B_local, n_out] of one data shard's rows."""
-    _hv.check_grid(x.dtype, grid)
-    if x.dtype == torch.float64:
-        if n_out != geo.n_grid():
-            raise ValueError(f"float64 Harvest gives geo.n_grid() = "
-                             f"{geo.n_grid()} frames, not {n_out}")
-        return _hv.harvest_parity(x, geo=geo)
-    from worldtpu_torch.analysis import contour_device as CDV
-    cand, score = _stages_local(x, geo, mesh, grid)
-    with stage("contour", x.device):
-        return CDV.fix_and_smooth(cand, score, n_out, geo.frame_period,
-                                  grid_ms=grid)
-
-
-@device_cache(maxsize=16)
-def _band_shard(geo, t, nt, device):
-    """Time rank t's stratified band subset of the geometry (nt time
-    ranks): (its real bands as a tuple, or None for all of them; the
-    number of zero rows padding it; the bounds [rows] float32 on device,
-    1.0 on the padding, or None for all bands)."""
-    Nb = geo.n_channels
-    if nt == 1:
-        return None, 0, None
-    nbl = -(-Nb // nt)
-    bands = tuple(range(t, Nb, nt))
-    bounds = np.ones(nbl, np.float32)
-    bounds[:len(bands)] = np.asarray(geo.boundary_f0, np.float32)[
-        list(bands)]
-    return bands, nbl - len(bands), torch.as_tensor(bounds, device=device)
-
-
-def _stages_local(x, geo, mesh, grid):
-    """One data shard's (candidates, scores) [B_local, F, S], the band and
-    frame stages split over the time ranks (float32)."""
-    _hv.check_grid(x.dtype, grid)
-    if x.dtype == torch.float64:
-        return _hv.harvest_device_stages(
-            x, torch.zeros(x.shape[0], dtype=x.dtype, device=x.device),
-            geo=geo)
-    nt, t = _time_coords(mesh)
-    geo_k = geo.with_grid(grid)
-    F = geo_k.f0_length
-    with stage("decimate", x.device):
-        y = _hv.decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
-    bands, n_pad, bounds = _band_shard(geo_k, t, nt, x.device)
-    with stage("band_filter", x.device):
-        filt = _hv.band_filter(y, geo_k, bands)
-        if n_pad:
-            filt = torch.cat([filt, filt.new_zeros(
-                (filt.shape[0], n_pad, filt.shape[2]))], dim=1)
-    with stage("zc", x.device):
-        raw = _zc.band_candidates(filt, geo_k, bounds)
-    with stage("detect_overlap", x.device):
-        # gathered rows are (time rank t, row j) <-> global band t + j*nt
-        raw = _gather_time(raw[:, :, None], mesh, axis=2)
-        raw = raw.reshape(raw.shape[0], -1, F)[:, :geo.n_channels]
-        cand = _hv._overlap_candidates(_hv._detect_candidates(raw, geo_k))
-    fl = -(-F // nt)
-    tpos = torch.arange(F, dtype=x.dtype, device=x.device) \
-        * (geo_k.grid_ms / 1000.0)
-    fr = slice(t * fl, (t + 1) * fl)
-    cand_s = Fn.pad(cand, (0, 0, 0, nt * fl - F))[:, fr].contiguous()
-    ref, sco = _refine.refine_stage(
-        y, cand_s, Fn.pad(tpos, (0, nt * fl - F))[fr], geo=geo_k,
-        dedup_tol=_hv.REFINE_DEDUP_TOL)
-    ref, sco = _gather_time(torch.stack([ref, sco]), mesh, axis=2)
-    return _hv.prune_compacted(ref[:, :F], sco[:, :F])
+    return _global(_hv.harvest_device_full(
+        _local(x, mesh), geo=geo, n_out=n_out, grid=grid_ms,
+        split=_time_split(mesh)), mesh)
 
 
 def _frame_times(n, geo, x):
@@ -399,16 +310,6 @@ def _scale(f0, scale):
     """F0 times the 0-d pitch-scale tensor, in f0's dtype (one float32
     product, the bits of f0 * a Python float)."""
     return (f0 * scale).to(f0.dtype)
-
-
-def _scaled_f0(x, geo, scale, grid_ms):
-    """Harvest F0 [B, n_grid] of x [B, T] on the grid_ms candidate grid
-    times the 0-d pitch-scale tensor, and the frame times [n_grid]."""
-    n_grid = geo.n_grid()
-    mean = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-    f0 = _hv.harvest_device_full(x, mean, geo=geo, n_out=n_grid,
-                                 grid=grid_ms)
-    return _scale(f0, scale), _frame_times(n_grid, geo, x)
 
 
 def _analysis(x, f0, tpos, *, fs, fft_size, max_half_window):

@@ -176,7 +176,9 @@ Phases (any failure raises, so the exit code is not 0):
      peak reserved memory within the eager loop's plus three eager step
      working sets and 256 MiB and the second replayed loop's within the
      first's, with the pool each capture reserved; one replayed chunk step
-     profiled (its device trace shows the OLA kernel once); host syncs of
+     profiled (its device trace shows the OLA, pulse and noise kernels
+     once), the noise kernel's rows at that step against the plain
+     version's bit for bit (the kernels line's "noise" row); host syncs of
      each loop (replayed: at most the flags' read after the last replay);
      zc, refine, extend, merge, smoothing and OLA launches counted from
      0; peak device memory within
@@ -311,6 +313,20 @@ PEAK_F64_FLOP_S = 34e12
 # the H100 SXM's data-sheet peaks at 700 W (the kernels' bounds)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+# instructions a lane issues: four schedulers an SM, one warp instruction
+# (32 lanes) each a clock, against 128 FP32 lanes where an FMA counts two;
+# the integer ALU pipe (IADD3, LOP3, SHF, ISETP, ...): 64 lanes an SM
+PEAK_ISSUE_S = PEAK_F32_FLOP_S / 2
+PEAK_INT32_OPS_S = PEAK_F32_FLOP_S / 4
+# the noise kernel's loop, a column on its common path (the normal's w < 5
+# branch, fft a multiple of 4): SASS instructions, and those of them on the
+# integer ALU pipe; counted in ``cuobjdump -sass`` of csrc/noise.cu built
+# for sm_90a as the library builds it (-O3, --fmad=false).  The Threefry's
+# adds go half to IADD3 and half to IMAD.IADD on the FMA pipe, so the
+# columns are bound by issue.  The block's prologue (its rows' keys, a
+# Threefry a row) is left out: the bound is a floor.
+NOISE_SASS_A_COLUMN = 155
+NOISE_ALU_A_COLUMN = 75
 
 
 # the C entries of the designs the current kernels replaced (--baseline),
@@ -2006,6 +2022,9 @@ def main(argv=None):
     PG.clear()                 # the captured programs' memory, before peaks
     torch.cuda.empty_cache()
     long_counts, cut = long_audio(torch, dev, card, cycles_per_ms)
+    results.append(dict(cut.pop("noise"),
+                        launches_main=counts.get("wt_noise_rows", 0),
+                        launches_corpus=corpus_counts.get("wt_noise_rows", 0)))
     for r in results:
         r["launches_long"] = long_counts.get(C_ENTRY[r["name"]], 0)
 
@@ -2159,12 +2178,66 @@ def pulse_row(torch, _build, S, PK, alone_ms, cycles_per_ms, card, counts,
                 real_pulses=n_real, pulses=total)
 
 
+def noise_row(torch, card, cycles_per_ms, key, start, count, fft):
+    """The noise rows' kernel against its plain version on the card at a
+    chunk step's rows [1, count, fft] (LongPipeline's Pmax), bit for bit;
+    its device time alone, its call's, the plain version's; the kernels
+    line's row."""
+    from worldtpu_torch import _build
+    from worldtpu_torch.ops import noise_kernel as NK
+    from worldtpu_torch.synthesis import noise as N
+    with torch.no_grad():
+        nk, seen = capture(_build, lambda: N.indexed_noise(key, start, count,
+                                                           fft))
+        npl = N.indexed_noise_plain(key, start, count, fft)
+        diff = nk != npl
+        n_diff = int(diff.sum())
+        err = float((nk - npl).abs().max())
+        ms = device_ms(torch, cycles_per_ms, replayer(
+            torch, _build, _build.library(), seen), 30)
+        call = median_ms(torch, lambda: NK.noise_rows_cuda(
+            key, start, count, fft), 10)
+        plain = median_ms(torch, lambda: N.indexed_noise_plain(
+            key, start, count, fft), 5)
+        # one run a window: the chain's ~390 launches fill most of the
+        # launch queue behind the sleep kernel
+        old = device_ms(torch, cycles_per_ms, lambda: N.indexed_noise_plain(
+            key, start, count, fft), 1)
+    cols, rows = nk.numel(), nk.numel() // fft
+    n_bytes = 4 * cols + 8 * start.numel() + 16
+    tb = n_bytes / PEAK_BYTES_S * 1e3
+    t_issue = NOISE_SASS_A_COLUMN * cols / PEAK_ISSUE_S * 1e3
+    t_alu = NOISE_ALU_A_COLUMN * cols / PEAK_INT32_OPS_S * 1e3
+    log(f"noise: {tuple(nk.shape)}; columns unequal to the plain version "
+        f"{n_diff} (tol 0), max abs diff {err:.3e}; kernel alone {ms:.4f} ms,"
+        f" call {call:.4f} ms, the plain chain (the design it replaced) "
+        f"{old:.4f} ms device alone, {plain:.3f} ms with its host; "
+        f"{NOISE_SASS_A_COLUMN * cols / 1e9:.3f} G instructions issued "
+        f"({t_issue * 1e3:.2f} us at {PEAK_ISSUE_S / 1e12:.2f} T/s), "
+        f"{NOISE_ALU_A_COLUMN * cols / 1e9:.3f} G on the integer ALU pipe "
+        f"({t_alu * 1e3:.2f} us at {PEAK_INT32_OPS_S / 1e12:.2f} T/s), "
+        f"{n_bytes / 1e6:.1f} MB written ({tb * 1e3:.2f} us)  [{card}]")
+    if n_diff:
+        raise AssertionError("the noise kernel's rows are not the plain "
+                             "version's")
+    return dict(name="noise", source="worldtpu_torch/csrc/noise.cu",
+                replaces="none (worldtpu/synthesis/synthesis.py "
+                         "indexed_noise, left to XLA)",
+                launches=len(seen), max_abs_err=err, ms=ms, call_ms=call,
+                plain_ms=plain, bound=max((tb, "bytes"),
+                                          (t_issue, "instruction issue"),
+                                          (t_alu, "integer ALU pipe")),
+                library_ms=None, old_design_ms=old, rows=rows,
+                unequal_columns=n_diff)
+
+
 # the symbol of each kernel's __global__ function in csrc/ (one a launch)
 KERNEL_SYMBOLS = {"wt_zc": "zc_kernel", "wt_refine_sums": "refine_kernel",
                   "wt_ola": "ola_kernel", "wt_extend": "extend_kernel",
                   "wt_contour_merge": "merge_kernel",
                   "wt_contour_smooth": "smooth_kernel",
-                  "wt_pulse_resp": "pulse_kernel"}
+                  "wt_pulse_resp": "pulse_kernel",
+                  "wt_noise_rows": "noise_kernel"}
 # geometries run eagerly between a capture and its replay: more than any
 # device constant cache holds (ops.numeric.device_cache, 32 at most)
 EVICT_GEOMETRIES = 36
@@ -2647,7 +2720,7 @@ def contour_rows(torch, cycles_per_ms, card, margs, mkw, sargs, counts):
 
 # the C entry of each kernel of the kernels line
 C_ENTRY = {"zc": "wt_zc", "refine": "wt_refine_sums", "ola": "wt_ola",
-           "pulse": "wt_pulse_resp",
+           "pulse": "wt_pulse_resp", "noise": "wt_noise_rows",
            "extend": "wt_extend", "zc_events": "wt_zc_events",
            "ola_f64": "wt_ola_f64", "seq_cumsum": "wt_seq_cumsum_f64",
            "contour_merge": "wt_contour_merge",
@@ -2656,6 +2729,8 @@ MAIN_KERNELS = ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend",
                 "wt_contour_merge", "wt_contour_smooth", "wt_pulse_resp")
 # the kernels of HarvestKernel.forward (the main path's but the synthesis')
 SYNTHESIS_KERNELS = ("wt_ola", "wt_pulse_resp")
+#: the kernels of a LongPipeline chunk step, one launch each
+LONG_STEP_KERNELS = SYNTHESIS_KERNELS + ("wt_noise_rows",)
 #: the contour chain's kernels, one launch each a LongHarvest call on the
 #: card
 CONTOUR_KERNELS = ("wt_extend", "wt_contour_merge", "wt_contour_smooth")
@@ -3577,10 +3652,12 @@ def long_audio(torch, dev, card, cycles_per_ms):
     # trace shows that the replayed step really ran the synthesis kernels
     s_tr = traced_kernels(s_acts)
     log(f"(b) our kernels in the replayed chunk step's device trace: {s_tr} "
-        f"(gate: wt_ola and wt_pulse_resp once, no other)")
-    if any(v != (k in SYNTHESIS_KERNELS) for k, v in s_tr.items()):
+        f"(gate: {', '.join(LONG_STEP_KERNELS)} once, no other)")
+    if any(v != (k in LONG_STEP_KERNELS) for k, v in s_tr.items()):
         raise AssertionError("the replayed chunk step's device trace does "
-                             "not show the OLA and pulse kernels once")
+                             "not show the OLA, pulse and noise kernels once")
+    noise = noise_row(torch, card, cycles_per_ms, key_t, o_[k_],
+                      p6.Pmax, p6.fft)
     del c_, o_, ks
 
     # bounded memory: the bytes that grow with the recording are the input
@@ -3746,9 +3823,9 @@ def long_audio(torch, dev, card, cycles_per_ms):
     # recording's chunks
     long_counts = {k: counts[False][0].get(k, 0)
                    for k in ("wt_zc", "wt_refine_sums") + CONTOUR_KERNELS}
-    for k in SYNTHESIS_KERNELS:
+    for k in LONG_STEP_KERNELS:
         long_counts[k] = loop_counts[(False, "eager")].get(k, 0)
-    return long_counts, dict(x60=x60, f0_x60=f0c, x150=x150)
+    return long_counts, dict(x60=x60, f0_x60=f0c, x150=x150, noise=noise)
 
 
 # ---- phase 10 ----

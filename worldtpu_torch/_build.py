@@ -50,7 +50,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: pulse is held to a tolerance (its FFTs' rounding is not cuFFT's); its
 #: products and sums that must round as the plain version's (the spectral
 #: rows' interpolation and the voicing gate) are written with __fmul_rn /
-#: __fadd_rn, which are never contracted.
+#: __fadd_rn, which are never contracted.  noise is held to its plain
+#: version bit for bit: its erfinv polynomial's steps round one at a time.
 FMAD = {"refine": "true", "pulse": "true"}
 
 #: kernel name -> launches since the last clear()
@@ -98,6 +99,8 @@ _SIGNATURES = {
     # pt, shift, ns, vuv, valid, spec, aper, noise, frame_offset (or NULL),
     # tw, dcr, out, B, P, F, fft, off0, coeff_scale, stream
     "wt_pulse_resp": (_P,) * 12 + (_I,) * 4 + (ctypes.c_longlong, _F, _P),
+    # key, start, out, n_starts, count, fft, stream
+    "wt_noise_rows": (_P, _P, _P, ctypes.c_longlong, _I, _I, _P),
     # mark (2 * stage + 0 at entry, + 1 at exit), stream; launched by
     # tracing.stage, never through launch(), so never counted
     "wt_mark": (_I, _P),

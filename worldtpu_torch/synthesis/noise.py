@@ -4,8 +4,12 @@ Port of ``worldtpu.synthesis.synthesis.indexed_noise``: row i of the noise
 is a function of the key and the GLOBAL pulse ordinal ``start + i`` alone,
 so a chunked synthesis draws the same noise for pulse n whichever chunk
 synthesizes it.  The generator is JAX's default one, Threefry-2x32 with 20
-rounds, in int64 tensor operations masked to 32 bits (the same code on the
-CPU and the card; no kernel behind it):
+rounds.  ``indexed_noise_plain`` runs it in int64 tensor operations masked
+to 32 bits: the CPU's route, float64's on any device, and the yardstick of
+the kernel.  A float32 draw on a CUDA device launches the kernel of
+``csrc/noise.cu`` (``ops/noise_kernel.py``): the rounds in uint32
+registers and one write a column, with the plain version's bits and
+normals:
 
   - a key is two uint32 words; ``prng_key(seed)`` is JAX's ``PRNGKey(seed)``,
     the words (0, seed) for 0 <= seed < 2**32;
@@ -30,6 +34,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from worldtpu_torch.ops import noise_kernel as NK
+from worldtpu_torch.ops.numeric import device_kind
 
 _M32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -175,7 +182,9 @@ def indexed_noise(key, start, count, fft_size, dtype=torch.float32,
     ``dtype`` (float32, or float64 as JAX draws it under x64).
     ``start`` is an int or an int64 tensor of any shape (on the device: no
     host sync); the leading dimensions follow its shape.  A ``key_tensor``
-    on start's device is read there (no host read either)."""
+    on start's device is read there (no host read either).  float32 on a
+    CUDA device launches the kernel; the CPU and float64 take
+    ``indexed_noise_plain``."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"indexed_noise draws float32 or float64 rows, "
                          f"not {dtype}")
@@ -184,6 +193,19 @@ def indexed_noise(key, start, count, fft_size, dtype=torch.float32,
         start = start.to(device=device, dtype=torch.int64)
     else:
         start = torch.full((), int(start), dtype=torch.int64, device=device)
+    if dtype == torch.float32 and device_kind(start) == "cuda":
+        words = _words(key, start.device)
+        key = (key if isinstance(words[0], torch.Tensor)
+               else key_tensor(words, start.device))
+        return NK.noise_rows_cuda(key.contiguous(), start.contiguous(),
+                                  count, fft_size)
+    return indexed_noise_plain(key, start, count, fft_size, dtype)
+
+
+def indexed_noise_plain(key, start, count, fft_size, dtype=torch.float32):
+    """``indexed_noise`` by int64 tensor operations masked to 32 bits, on
+    any device, for an int64 tensor ``start`` and a float32 or float64
+    ``dtype`` (as ``indexed_noise`` passes them)."""
     ords = start[..., None] + torch.arange(count, dtype=torch.int64,
                                            device=start.device)
     if dtype == torch.float64:

@@ -377,6 +377,28 @@ def test_batch_analyze_mesh(ranks, single22):
         np.testing.assert_allclose(got, ref, rtol=0, atol=atol)
 
 
+def test_batch_features_mesh(ranks):
+    """batch_features under (2, 2) runs batch_analyze's body on each data
+    shard, then the codec: on every rank its F0 equals that rank's
+    batch_analyze F0 and its coded frames the codec of that rank's
+    envelope and aperiodicity, bit for bit."""
+    from worldtpu_torch import codec as TC
+    fs, fft = int(ranks.inp["fs22"]), int(ranks.inp["fft22"])
+    for o in ranks.out():
+        spec, ap = (torch.tensor(o[k]) for k in ("analyze_spec",
+                                                  "analyze_ap"))
+        B, F, K = spec.shape
+        mcep = TC.code_spectral_envelope(spec.reshape(B * F, K), fs=fs,
+                                         fft_size=fft, n_dims=60)
+        bap = TC.code_aperiodicity(ap.reshape(B * F, K), fs=fs,
+                                   fft_size=fft)
+        np.testing.assert_array_equal(o["features_f0"], o["analyze_f0"])
+        np.testing.assert_array_equal(o["features_mcep"],
+                                      mcep.reshape(B, F, -1).numpy())
+        np.testing.assert_array_equal(o["features_bap"],
+                                      bap.reshape(B, F, -1).numpy())
+
+
 def test_batch_copy_synthesis_f64_mesh(ranks):
     """float64 batch_copy_synthesis under (2, 2) on t22 x2 with the C++
     F0 (worldtpu's tests/test_parallel.py:37-64), inputs as DTensors:

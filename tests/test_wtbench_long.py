@@ -225,15 +225,17 @@ def test_chunk_step_marks_are_no_ops_on_the_cpu(monkeypatch):
 
 
 def test_long_stages_follow_the_main_path():
-    """The six long-audio stages come after the main path's 13, so every
-    earlier mark keeps its index."""
+    """The six long-audio stages come after the main path's 13, and the
+    feature path's codec after them, so every earlier mark keeps its
+    index."""
     assert tracing.STAGES[:13] == (
         "decimate", "band_filter", "zc", "detect_overlap", "refine_prepare",
         "refine_sums", "refine_finish", "prune", "contour", "cheaptrick",
         "d4c", "pulse_train", "ola")
-    assert tracing.STAGES[13:] == ("long_prescan", "long_analysis",
-                                   "long_timebase", "long_noise",
-                                   "long_pulses", "long_ola")
+    assert tracing.STAGES[13:19] == ("long_prescan", "long_analysis",
+                                     "long_timebase", "long_noise",
+                                     "long_pulses", "long_ola")
+    assert tracing.STAGES[19:] == ("codec",)
     with pytest.raises(ValueError):
         tracing.long_span("chunk")
 

@@ -41,7 +41,8 @@ def _geo22(inp, x):
 
 
 def _f0_case(inp, mesh, out):
-    """batch_harvest_f0 and batch_analyze under (2, 2) on t22 x4."""
+    """batch_harvest_f0, batch_analyze and batch_features under (2, 2) on
+    t22 x4."""
     from worldtpu_torch.parallel import batch as B
     x = torch.tensor(inp["x22"])
     geo = _geo22(inp, x)
@@ -53,6 +54,13 @@ def _f0_case(inp, mesh, out):
     out["analyze_f0"] = f0a.to_local().numpy()
     out["analyze_spec"] = spec.to_local().numpy()
     out["analyze_ap"] = ap.to_local().numpy()
+    f0f, mcep, bap = B.batch_features(
+        x, geo=geo, fs=int(inp["fs22"]), fft_size=int(inp["fft22"]),
+        max_half_window=int(inp["mhw22"]), n_dims=60, pitch_scale=1.2,
+        mesh=mesh)
+    out["features_f0"] = f0f.to_local().numpy()
+    out["features_mcep"] = mcep.to_local().numpy()
+    out["features_bap"] = bap.to_local().numpy()
 
 
 def _copy_syn_case(inp, mesh, out):

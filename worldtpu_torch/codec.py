@@ -10,6 +10,10 @@ independent, so a batch flattens to [B*F, K]) and computes on its device
 and in its dtype; constants are made in that dtype before any arithmetic,
 in the order the JAX functions use, so that float32 rounds where theirs
 does.
+
+The coders make no host synchronisation and no host-to-device copy, and
+write nothing in place, so a captured CUDA graph can hold them
+(``parallel.batch.batch_features``).
 """
 
 from __future__ import annotations
@@ -120,7 +124,7 @@ def code_spectral_envelope(spectrogram, *, fs, fft_size, n_dims):
     i = _arange(n_dims, spec)
     w0 = 2.0 * torch.cos(i * C.PI / fft_size) / math.sqrt(fft_size)
     w1 = 2.0 * torch.sin(i * C.PI / fft_size) / math.sqrt(fft_size)
-    w0[0] = w0[0] / math.sqrt(2.0)
+    w0 = torch.where(i == 0, w0 / math.sqrt(2.0), w0)
     # the reference's spectrum is conj(numpy's): Re_ref*w0 - Im_ref*w1
     #   = Re*w0 + Im*w1 in numpy's convention
     Sd = S[:, :n_dims]

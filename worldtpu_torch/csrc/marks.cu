@@ -10,11 +10,12 @@
 // device's clock around the kernels of their stage.  A mark reads and
 // writes nothing, so no output changes; each is one empty <<<1, 1>>> block
 // (~1-2 us as a graph node), 26 a main-path batch, 10 a long-audio chunk
-// step, 2 a prescan step.
+// step, 2 a prescan step, 24 a feature batch (batch_features: the
+// analysis' 22 and the codec's 2).
 //
 // WT_STAGES is the one list of the stage names, in main-path order, the
-// long-audio stages after them (appended: every earlier mark keeps its
-// index);
+// long-audio stages after them, then the feature path's codec (each
+// appended: every earlier mark keeps its index);
 // tracing.STAGES equals it (tests/test_torch_tracing.py).  Mark 2 i is
 // stage i's entry (wt_mark_<stage>_in), mark 2 i + 1 its exit
 // (wt_mark_<stage>_out).  The names start with "wt_mark_": a profiler's
@@ -42,7 +43,8 @@
   X(long_timebase)   \
   X(long_noise)      \
   X(long_pulses)     \
-  X(long_ola)
+  X(long_ola)        \
+  X(codec)
 
 #define WT_MARK_KERNELS(name)                         \
   extern "C" __global__ void wt_mark_##name##_in() {} \

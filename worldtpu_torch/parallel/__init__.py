@@ -19,6 +19,7 @@ _LAZY = {
     "batch_wav_to_wav": ("worldtpu_torch.parallel.batch",
                          "batch_wav_to_wav"),
     "batch_analyze": ("worldtpu_torch.parallel.batch", "batch_analyze"),
+    "batch_features": ("worldtpu_torch.parallel.batch", "batch_features"),
     "batch_harvest_device_stages": ("worldtpu_torch.parallel.batch",
                                     "batch_harvest_device_stages"),
     "batch_harvest_f0": ("worldtpu_torch.parallel.batch",

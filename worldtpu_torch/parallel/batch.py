@@ -47,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from worldtpu_torch import codec as _codec
 from worldtpu_torch.analysis import harvest as _hv
 from worldtpu_torch.analysis.cheaptrick import cheaptrick_frames
 from worldtpu_torch.analysis.d4c import d4c_frames
@@ -267,6 +268,46 @@ def _analyze(x, scale, *, geo, fs, fft_size, max_half_window, grid_ms,
     spec, ap = _analysis(x, f0, _frame_times(n_grid, geo, x), fs=fs,
                          fft_size=fft_size, max_half_window=max_half_window)
     return f0, spec, ap
+
+
+@torch.no_grad()
+def batch_features(x, *, geo, fs, fft_size, max_half_window, n_dims,
+                   pitch_scale=1.0, grid_ms=1, mesh=None):
+    """WORLD acoustic features in one call: [B, T] wavs -> (f0 [B, n_grid],
+    coded spectral envelope [B, n_grid, n_dims], coded aperiodicity
+    [B, n_grid, n_ap]) -- ``batch_analyze``'s analysis, then
+    ``codec.code_spectral_envelope`` and ``codec.code_aperiodicity`` on its
+    frames (n_ap = ``codec.get_number_of_aperiodicities(fs)``).  The
+    [B, n_grid, K] envelope and aperiodicity stay inside the call.
+    ``mesh``: the same body on each data shard, as ``batch_analyze``'s,
+    DTensor outputs.  Without a mesh, float32 CUDA input runs as a captured
+    CUDA graph from the second call of a shape on, as
+    ``batch_wav_to_wav``."""
+    kw = dict(geo=geo, fs=fs, fft_size=fft_size,
+              max_half_window=max_half_window, n_dims=n_dims,
+              grid_ms=grid_ms)
+    if mesh is None:
+        return _graphs.call(_features, (x,), pitch_scale, **kw)
+    x_l = _local(x, mesh)
+    return tuple(_global(o, mesh) for o in _features(
+        x_l, _graphs.scale_buffer(pitch_scale, x_l), split=_time_split(mesh),
+        **kw))
+
+
+def _features(x, scale, *, geo, fs, fft_size, max_half_window, n_dims,
+              grid_ms, split=_hv.WHOLE):
+    """batch_features of one data shard: ``_analyze``, then the codec on
+    its [B * F, K] frames."""
+    f0, spec, ap = _analyze(x, scale, geo=geo, fs=fs, fft_size=fft_size,
+                            max_half_window=max_half_window, grid_ms=grid_ms,
+                            split=split)
+    B, F, K = spec.shape
+    with stage("codec", x.device):
+        mcep = _codec.code_spectral_envelope(
+            spec.reshape(B * F, K), fs=fs, fft_size=fft_size, n_dims=n_dims)
+        bap = _codec.code_aperiodicity(ap.reshape(B * F, K), fs=fs,
+                                       fft_size=fft_size)
+    return f0, mcep.reshape(B, F, n_dims), bap.reshape(B, F, -1)
 
 
 @torch.no_grad()

@@ -33,6 +33,10 @@ chain, inside the ``contour`` stage, and the download of its F0; else the
 host chain), ``wt.long.plan`` (the chunk plan and its device tables) and
 ``wt.long.land`` (the host accumulation of chunk buffers).
 
+The feature path (``parallel.batch.batch_features``) marks its coding of
+the envelope and aperiodicity as the stage ``codec``, appended after the
+long-audio stages.
+
 Every ``wt.*`` range of the port is opened here.  What reads them:
 ``wtbench/stages.py``.
 """
@@ -47,12 +51,13 @@ from torch.profiler import record_function
 from worldtpu_torch import _build
 
 #: the stages of the main path, in its order, then those of the long-audio
-#: chunk step and prescan (``WT_STAGES`` in ``csrc/marks.cu``)
+#: chunk step and prescan, then the feature path's codec
+#: (``WT_STAGES`` in ``csrc/marks.cu``)
 STAGES = ("decimate", "band_filter", "zc", "detect_overlap",
           "refine_prepare", "refine_sums", "refine_finish", "prune",
           "contour", "cheaptrick", "d4c", "pulse_train", "ola",
           "long_prescan", "long_analysis", "long_timebase", "long_noise",
-          "long_pulses", "long_ola")
+          "long_pulses", "long_ola", "codec")
 
 #: the graph cache's spans: a call's outermost one, and a capture's parts
 GRAPH_SPANS = ("eager", "capture", "warm", "record", "evict", "replay")

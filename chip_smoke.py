@@ -22,8 +22,9 @@ Phases (any failure raises, so the exit code is not 0):
      synthesis), static pulse capacity, through the graph cache
      (parallel/graphs.py: the first call eager, the second captured and
      replayed, later calls replayed); checks shape, finiteness, level,
-     pulse overflow, that the zc, refine, OLA, extend, pulse-response and
-     the two contour kernels each ran once a batch, eagerly (counted at the
+     pulse overflow, that the zc, refine, OLA, extend, D4C,
+     pulse-response and the two contour kernels each ran once a batch,
+     eagerly (counted at the
      wrappers; the kernels line's launches) and replayed (the capture's recorded counts,
      and each kernel once in a profiled replay's device trace), and which
      event layout zc used; the replayed F0, y and overflow flags bit-equal
@@ -51,8 +52,13 @@ Phases (any failure raises, so the exit code is not 0):
      (index_add_, device time alone); the pulse-response kernel against
      the plain chain it replaced (each real row's relative RMS within
      PULSE_ROW_REL, padded rows zero, the voicing gate equal), with the
-     chain's own device time alone as the old design; OLA's real and
-     padding pulses,
+     chain's own device time alone as the old design; the D4C kernel
+     against its plain chain on the main path's own D4C call and on a
+     48 kHz batch of 8 (rows of frames both call active within D4C_ATOL,
+     each gate flip at a float64 LoveTrain ratio within D4C_KNIFE of the
+     threshold, inactive rows the default), with the chain's device time
+     alone as the old design and the bound counted from the frames the
+     gate let through; OLA's real and padding pulses,
      extend's longest walk and device time per step of it (the chain's
      floor); the zc phase-1 entry (zc_kernel.zc_events, the zc events
      kernel's path, driven with the counts set to 0) and the zc split
@@ -299,6 +305,9 @@ REFINE_REL = 1e-5      # DFT sums, abs error over the largest |sum|
 REFINE_F0_REL = 1e-4   # refined F0, relative, where both are nonzero
 OLA_ATOL, OLA_RTOL = 1e-5, 1e-4
 PULSE_ROW_REL = 1e-5   # pulse responses: each row's relative RMS
+D4C_ATOL = 1e-4        # aperiodicity, frames both call active (the
+                       # tolerance the CPU tests hold it to against JAX)
+D4C_KNIFE = 1e-6       # a gate flip's LoveTrain ratio from the threshold
 OLA_F64_REL = 1e-12    # float64 OLA vs index_add_, of the largest |y|
 
 # float64 on the card against the C++ dumps: (gate on the card, what the CPU
@@ -1129,6 +1138,8 @@ def main(argv=None):
             call_ms=o_call, plain_ms=o_plain, bound=o_bound,
             library_ms=o_lib))
         del resp, ok_, op
+        results.append(d4c_row(torch, dev, card, cycles_per_ms, counts,
+                               run_eager))
         results.append(pulse_row(torch, _build, S, pulse_kernel, alone_ms,
                                  cycles_per_ms, card, counts, dict(
                                      f0=f0, spectrogram=spec,
@@ -1634,7 +1645,7 @@ def main(argv=None):
         raise AssertionError("World.copy_synthesis output")
     entry_counts = dict(_build.launches)
     log(f"entry points' launches: {entry_counts}")
-    for k in ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend",
+    for k in ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend", "wt_d4c",
               "wt_pulse_resp"):
         if entry_counts.get(k, 0) < 1:
             raise AssertionError(f"kernel {k} not launched by the entry "
@@ -1773,7 +1784,8 @@ def main(argv=None):
             raise AssertionError(f"kernel {k} not launched by the float64 "
                                  f"path")
     if any(k in f64_counts for k in ("wt_zc", "wt_refine_sums", "wt_ola",
-                                     "wt_extend", "wt_pulse_resp")):
+                                     "wt_extend", "wt_d4c",
+                                     "wt_pulse_resp")):
         raise AssertionError("the float64 path launched a float32 kernel")
 
     # the float64 path's two kernels at t22's shapes against their plain
@@ -2064,6 +2076,144 @@ def main(argv=None):
     return 0
 
 
+def d4c_case(torch, card, cycles_per_ms, label, run):
+    """The D4C kernel on the arguments of the one D4C call ``run`` makes,
+    against its plain chain on the same card tensors: the rows of frames
+    both call active within D4C_ATOL, each gate flip at a float64 LoveTrain
+    ratio within D4C_KNIFE of the threshold, inactive rows the default;
+    the kernel's device time alone, its call's, the plain chain's with
+    its host and its device time alone (a captured program of it
+    replayed); the bound, counted from the frames the gate let
+    through."""
+    from worldtpu_torch import _build, constants as C
+    from worldtpu_torch.analysis import d4c as D4
+    from worldtpu_torch.ops import d4c_kernel as DK
+    seen = []
+    real = DK.d4c_frames_cuda
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+
+    DK.d4c_frames_cuda = spy
+    try:
+        run()
+    finally:
+        DK.d4c_frames_cuda = real
+    (a, k), = seen
+    x, f0, tp = a
+    fs, so = k["fs"], k.get("sample_offset")
+    with torch.no_grad():
+        got, c_seen = capture(_build, lambda: DK.d4c_frames_cuda(*a, **k))
+        want = DK.d4c_frames_plain(*a, **k)
+        ag, aw = got[..., 0] < 0.5, want[..., 0] < 0.5
+        both = ag & aw
+        err = float((got - want)[both].abs().max())
+        default = bool((got[~ag] == 1.0 - C.MY_SAFE_GUARD_MINIMUM).all())
+        flips = (ag != aw).nonzero().tolist()
+        ap0 = D4.love_train_ap0(x.double(), f0.double(), tp.double(), fs=fs,
+                                sample_offset=so) if flips else None
+        flip_ap0 = [(b, f, float(ap0[b, f])) for b, f in flips]
+        ms = device_ms(torch, cycles_per_ms, replayer(
+            torch, _build, _build.library(), c_seen), 30)
+        call = median_ms(torch, lambda: DK.d4c_frames_cuda(*a, **k), 10)
+        plain = median_ms(torch, lambda: DK.d4c_frames_plain(*a, **k), 3)
+        # the chain's device time alone, captured once and replayed: its
+        # thousands of launches would fill the launch queue behind the
+        # sleep kernel of device_ms
+        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            DK.d4c_frames_plain(*a, **k)
+            with torch.cuda.graph(graph, stream=side):
+                DK.d4c_frames_plain(*a, **k)
+        torch.cuda.current_stream().wait_stream(side)
+        old = device_ms(torch, cycles_per_ms, graph.replay, 3)
+        del graph
+    ip, _ = DK.kernel_params(fs, k["fft_size_out"], k["threshold"],
+                             k["f0_ceil_bound"])
+    N, n_lt, n_ap = int(ip[0]), int(ip[13]), int(ip[8])
+    K = N // 2 + 1
+    voiced = int((f0 > 0).sum())
+    act = int(ag.sum())
+    f0d = f0.double()[ag].clamp(min=C.FLOOR_F0_D4C)
+
+    def fft(m):
+        return 5 * m * (m.bit_length() - 1)
+
+    # a voiced frame: LoveTrain's window (~10 operations a sample) and its
+    # packed transform; an active frame besides: the centroids' and the
+    # Hanning window, two N-point and one N/2-point complex FFT, the bands
+    # two to an N-point FFT, the three smoothings' taps (width * N / fs + 2
+    # a bin) and ~20 operations a bin for the rows' arithmetic
+    taps = float(((2.5 * f0d * N / fs + 6) * K).sum())
+    hc = (4.0 * fs / f0d / 2.0).round().clamp(max=D4.d4c_max_half_c(fs))
+    ops = (voiced * (10 * (3 * fs / 40 + 1) + fft(n_lt // 2))
+           + act * (2 * fft(N) + fft(N // 2) + -(-n_ap // 2) * fft(N)
+                    + 20 * K) + taps + float(30 * (2 * hc + 1).sum()))
+    n_bytes = nbytes(x, f0, tp, got)
+    b = bound(n_bytes, ops)
+    log(f"d4c, {label}: x {tuple(x.shape)}, {f0.shape[1]} frames a row, "
+        f"fft {N} (LoveTrain {n_lt}), {voiced} voiced frames, {act} past "
+        f"the gate; max |d ap| against the plain chain {err:.3e} on "
+        f"{int(both.sum())} frames both call active (tol {D4C_ATOL}); "
+        f"inactive rows the default {default}; gate flips (b, f, float64 "
+        f"ap0) {flip_ap0} (tol: within {D4C_KNIFE} of {k['threshold']}); "
+        f"kernel alone {ms:.4f} ms, call {call:.4f} ms, the plain chain "
+        f"(the design it replaced) {old:.4f} ms device alone, {plain:.3f} "
+        f"ms with its host; {ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB; "
+        f"bound {b[0]:.4f} ms ({b[1]}), share {b[0] / ms:.3f}  [{card}]")
+    if (err > D4C_ATOL or not default
+            or any(abs(v - k["threshold"]) > D4C_KNIFE for _, _, v in
+                   flip_ap0)):
+        raise AssertionError(f"the D4C kernel disagrees with its plain "
+                             f"chain ({label})")
+    return dict(label=label, shape=list(got.shape), fft=N, voiced=voiced,
+                active=act, max_abs_err=err, gate_flips=flip_ap0, ms=ms,
+                call_ms=call, plain_ms=plain, old_design_ms=old,
+                bound_ms=b[0], bound_by=b[1], launches=len(c_seen))
+
+
+def d4c_row(torch, dev, card, cycles_per_ms, counts, run_eager):
+    """The kernels line's D4C row: the main path's own D4C call (the eager
+    program's arguments), then batch_analyze's eager program's on a 48 kHz
+    batch of 8 (bench.synth_utterance_diverse, the port's Harvest F0); the
+    row's figures are the main path's, each case's in ``cases``."""
+    from bench import synth_utterance_diverse
+    from worldtpu_torch.analysis import harvest as H
+    from worldtpu_torch.analysis.cheaptrick import CheapTrickKernel
+    from worldtpu_torch.parallel import batch as PB, graphs as PG
+    cases = [d4c_case(torch, card, cycles_per_ms,
+                      f"the main path ({FS} Hz, B={BATCH})", run_eager)]
+    fs48 = 48000
+    waves = [synth_utterance_diverse(fs48, i) for i in range(BATCH)]
+    x_np, _, _, _, _ = PB.pad_batch(waves, fs48)
+    T = -(-x_np.shape[1] // 4096) * 4096
+    x48 = torch.tensor(np.pad(x_np, ((0, 0), (0, T - x_np.shape[1]))),
+                       device=dev)
+    ck48 = CheapTrickKernel(fs48)
+    akw = dict(geo=H.HarvestGeometry(fs48, T, f0_floor=40.0), fs=fs48,
+               fft_size=ck48.fft_size, max_half_window=ck48.max_half_window,
+               grid_ms=1)
+
+    def analyze48():
+        with torch.no_grad():
+            PB._analyze(x48, PG.scale_buffer(1.0, x48), **akw)
+
+    cases.append(d4c_case(torch, card, cycles_per_ms,
+                          f"batch_analyze's program at {fs48} Hz, "
+                          f"B={BATCH}", analyze48))
+    main = cases[0]
+    return dict(name="d4c", source="worldtpu_torch/csrc/d4c.cu",
+                replaces="none (worldtpu/analysis/d4c.py, left to XLA)",
+                launches=counts["wt_d4c"], launches_main=counts["wt_d4c"],
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=main["ms"], call_ms=main["call_ms"],
+                plain_ms=main["plain_ms"],
+                bound=(main["bound_ms"], main["bound_by"]), library_ms=None,
+                old_design_ms=main["old_design_ms"], cases=cases)
+
+
 def pulse_row(torch, _build, S, PK, alone_ms, cycles_per_ms, card, counts,
               train):
     """The pulse-responses kernel at the main path's shapes (the arguments
@@ -2237,7 +2387,7 @@ KERNEL_SYMBOLS = {"wt_zc": "zc_kernel", "wt_refine_sums": "refine_kernel",
                   "wt_contour_merge": "merge_kernel",
                   "wt_contour_smooth": "smooth_kernel",
                   "wt_pulse_resp": "pulse_kernel",
-                  "wt_noise_rows": "noise_kernel"}
+                  "wt_noise_rows": "noise_kernel", "wt_d4c": "d4c_kernel"}
 # geometries run eagerly between a capture and its replay: more than any
 # device constant cache holds (ops.numeric.device_cache, 32 at most)
 EVICT_GEOMETRIES = 36
@@ -2721,21 +2871,24 @@ def contour_rows(torch, cycles_per_ms, card, margs, mkw, sargs, counts):
 # the C entry of each kernel of the kernels line
 C_ENTRY = {"zc": "wt_zc", "refine": "wt_refine_sums", "ola": "wt_ola",
            "pulse": "wt_pulse_resp", "noise": "wt_noise_rows",
+           "d4c": "wt_d4c",
            "extend": "wt_extend", "zc_events": "wt_zc_events",
            "ola_f64": "wt_ola_f64", "seq_cumsum": "wt_seq_cumsum_f64",
            "contour_merge": "wt_contour_merge",
            "contour_smooth": "wt_contour_smooth"}
 MAIN_KERNELS = ("wt_zc", "wt_refine_sums", "wt_ola", "wt_extend",
-                "wt_contour_merge", "wt_contour_smooth", "wt_pulse_resp")
-# the kernels of HarvestKernel.forward (the main path's but the synthesis')
+                "wt_contour_merge", "wt_contour_smooth", "wt_d4c",
+                "wt_pulse_resp")
+# the kernels of HarvestKernel.forward (the main path's but the analysis'
+# and the synthesis')
 SYNTHESIS_KERNELS = ("wt_ola", "wt_pulse_resp")
 #: the kernels of a LongPipeline chunk step, one launch each
-LONG_STEP_KERNELS = SYNTHESIS_KERNELS + ("wt_noise_rows",)
+LONG_STEP_KERNELS = SYNTHESIS_KERNELS + ("wt_noise_rows", "wt_d4c")
 #: the contour chain's kernels, one launch each a LongHarvest call on the
 #: card
 CONTOUR_KERNELS = ("wt_extend", "wt_contour_merge", "wt_contour_smooth")
 HARVEST_KERNELS = tuple(k for k in MAIN_KERNELS
-                        if k not in SYNTHESIS_KERNELS)
+                        if k not in SYNTHESIS_KERNELS + ("wt_d4c",))
 CORPUS_UTTS = 16          # bench.py config 5: 2 x its batch of 8
 
 # float32 codec, card against CPU on the same input: the float32
@@ -3655,7 +3808,8 @@ def long_audio(torch, dev, card, cycles_per_ms):
         f"(gate: {', '.join(LONG_STEP_KERNELS)} once, no other)")
     if any(v != (k in LONG_STEP_KERNELS) for k, v in s_tr.items()):
         raise AssertionError("the replayed chunk step's device trace does "
-                             "not show the OLA, pulse and noise kernels once")
+                             "not show the OLA, pulse, noise and D4C "
+                             "kernels once")
     noise = noise_row(torch, card, cycles_per_ms, key_t, o_[k_],
                       p6.Pmax, p6.fft)
     del c_, o_, ks

@@ -229,7 +229,7 @@ def _batch(dev, fs=22050, n=2, dur=0.8):
 #: the main path's kernel launches a batch (one of each)
 MAIN_LAUNCHES = {"wt_zc": 1, "wt_refine_sums": 1, "wt_ola": 1,
                  "wt_extend": 1, "wt_contour_merge": 1,
-                 "wt_contour_smooth": 1, "wt_pulse_resp": 1}
+                 "wt_contour_smooth": 1, "wt_d4c": 1, "wt_pulse_resp": 1}
 
 
 @pytest.mark.cuda

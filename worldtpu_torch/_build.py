@@ -52,7 +52,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: rows' interpolation and the voicing gate) are written with __fmul_rn /
 #: __fadd_rn, which are never contracted.  noise is held to its plain
 #: version bit for bit: its erfinv polynomial's steps round one at a time.
-FMAD = {"refine": "true", "pulse": "true"}
+#: d4c is held to a tolerance (its FFTs and sums are not the chain's);
+#: the products and sums that decide an integer or its voicing gate are
+#: written with __fmul_rn / __fadd_rn.
+FMAD = {"refine": "true", "pulse": "true", "d4c": "true"}
 
 #: kernel name -> launches since the last clear()
 launches: collections.Counter = collections.Counter()
@@ -101,6 +104,9 @@ _SIGNATURES = {
     "wt_pulse_resp": (_P,) * 12 + (_I,) * 4 + (ctypes.c_longlong, _F, _P),
     # key, start, out, n_starts, count, fft, stream
     "wt_noise_rows": (_P, _P, _P, ctypes.c_longlong, _I, _I, _P),
+    # x, f0, pos, sample_offset (or NULL), nuttall, tw, out, int table and
+    # float table (host), B, F, T, pos_rows, stream
+    "wt_d4c": (_P,) * 9 + (_I,) * 4 + (_P,),
     # mark (2 * stage + 0 at entry, + 1 at exit), stream; launched by
     # tracing.stage, never through launch(), so never counted
     "wt_mark": (_I, _P),

@@ -13,26 +13,12 @@ arithmetic and its optional randn() dither hooks.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as Fn
 
 from worldtpu_torch import constants as C
 from worldtpu_torch.ops import dft, filters, trig
 from worldtpu_torch.ops.fftutil import (f0_floor_for_cheaptrick,
                                         fft_size_for_cheaptrick)
-from worldtpu_torch.ops.numeric import matlab_round, rdiv
-
-
-def frame_segments(x, origin, half):
-    """Rows x[b, clip(origin_f, 0, T-1) + (-half..half)] with edge
-    replication: x [B, T], origin [F] (shared by the rows) or [B, F] (one
-    per row) -> [B, F, 2*half+1]."""
-    T = x.shape[-1]
-    xpad = Fn.pad(x[:, None, :], (half, half), mode="replicate")[:, 0]
-    win = xpad.unfold(-1, 2 * half + 1, 1)
-    origin = origin.clamp(0, T - 1).long()
-    if origin.dim() == 1:
-        return win[:, origin]
-    return win[torch.arange(x.shape[0], device=x.device)[:, None], origin]
+from worldtpu_torch.ops.numeric import frame_segments, matlab_round, rdiv
 
 
 def cheaptrick_frames(x, f0, temporal_positions, *, fs, fft_size,

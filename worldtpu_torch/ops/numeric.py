@@ -17,6 +17,7 @@ import contextlib
 import functools
 
 import torch
+import torch.nn.functional as Fn
 
 #: while a CUDA graph is captured (parallel/graphs.py): every value that a
 #: ``device_cache`` function handed out, kept alive by the captured program
@@ -34,6 +35,19 @@ def matlab_round(x):
     matlab_round)."""
     return torch.where(x > 0, torch.floor(x + 0.5),
                        torch.ceil(x - 0.5)).to(torch.int32)
+
+
+def frame_segments(x, origin, half):
+    """Rows x[b, clip(origin_f, 0, T-1) + (-half..half)] with edge
+    replication: x [B, T], origin [F] (shared by the rows) or [B, F] (one
+    per row) -> [B, F, 2*half+1]."""
+    T = x.shape[-1]
+    xpad = Fn.pad(x[:, None, :], (half, half), mode="replicate")[:, 0]
+    win = xpad.unfold(-1, 2 * half + 1, 1)
+    origin = origin.clamp(0, T - 1).long()
+    if origin.dim() == 1:
+        return win[:, origin]
+    return win[torch.arange(x.shape[0], device=x.device)[:, None], origin]
 
 
 def device_kind(t):
